@@ -1,0 +1,78 @@
+"""Reference-channel spectrum monitor (counterpart of
+``blah2_tpu/dsp/spectrum.py``).
+
+Parity with reference `src/process/spectrum/SpectrumAnalyser.{h,cpp}`:
+decimation = n // bandwidth, n_spectrum = n // decimation, nfft =
+n_spectrum · decimation (`SpectrumAnalyser.cpp:16-19`); FFT + fftshift-style
+index permutation (k + nfft//2 + 1) mod nfft + stride-decimation
+(`SpectrumAnalyser.cpp:41-55`).
+
+The decimated bins are computed by polyphase folding plus one small FFT:
+every `decimation`-th bin (offset r) of an nfft-point FFT equals an
+n_spectrum-point FFT of the twiddle-folded sequence. The divergences of the
+JAX module (centre frequency from config, the intended frequency axis) are
+kept.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from blah2_tpu_torch.device import resolve_device
+
+
+class SpectrumAnalyser(nn.Module):
+    def __init__(
+        self,
+        n_samples: int,
+        bandwidth: float = 2000.0,
+        fc: float = 204_640_000.0,
+        dtype: torch.dtype = torch.complex64,
+        device=None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        self.n_samples = int(n_samples)
+        self.bandwidth = float(bandwidth)
+        self.fc = float(fc)
+        self.dtype = dtype
+
+        self.decimation = int(self.n_samples / self.bandwidth)
+        self.n_spectrum = self.n_samples // self.decimation
+        self.nfft = self.n_spectrum * self.decimation
+        ns, dec, nfft = self.n_spectrum, self.decimation, self.nfft
+
+        # Output bin k of the reference is F[(k*dec + nfft//2 + 1) mod nfft];
+        # each selected index is q*dec + r with one uniform offset r.
+        sel = (np.arange(ns, dtype=np.int64) * dec + nfft // 2 + 1) % nfft
+        r_off = sel % dec
+        if not np.all(r_off == r_off[0]):
+            raise ValueError("spectrum stride offset must be uniform")
+        self._r = int(r_off[0])
+        perm = sel // dec
+        tw = np.exp(-2j * np.pi * self._r
+                    * np.arange(nfft, dtype=np.float64) / nfft)
+        self.register_buffer("_perm", torch.from_numpy(perm).to(device))
+        self.register_buffer("_twiddle", torch.from_numpy(
+            tw.reshape(dec, ns)).to(device, dtype))
+
+        offset = self.bandwidth / 2.0 if dec % 2 == 0 else 0.0
+        idx = np.arange(-(ns // 2), ns - ns // 2, dtype=np.float64)
+        self.frequency_khz = ((idx * self.bandwidth) + offset + self.fc) / 1000.0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Complex decimated spectrum, shape (n_spectrum,)."""
+        x = x[: self.nfft].to(self.dtype)
+        folded = torch.sum(
+            x.reshape(self.decimation, self.n_spectrum) * self._twiddle, dim=0)
+        return self.finish(folded)
+
+    def finish(self, folded: torch.Tensor) -> torch.Tensor:
+        """Small n_spectrum-point FFT + reference bin permutation."""
+        return torch.fft.fft(folded)[self._perm]
+
+    @staticmethod
+    def to_db(spectrum: torch.Tensor) -> torch.Tensor:
+        return 10.0 * torch.log10(torch.abs(spectrum))

@@ -1,0 +1,500 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (blah2_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card and ``nvcc``.
+It builds the CUDA kernel from ``blah2_tpu_torch/csrc``, holds it against
+its plain PyTorch version, runs the golden recording and the default
+config (1.5 Msample CPIs, a 301 x 411 map) through the pipeline's user
+entry points, times them with CUDA events, and prints as its last line
+``{"ok": true, "device": {...}}``. Every failed check raises, so the script
+exits non-zero and prints no result. It imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+# The smoke drives one card, the first this process may see; it hides the
+# others, so the device count it reports is the card it ran on.
+_visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+os.environ["CUDA_VISIBLE_DEVICES"] = \
+    "0" if _visible is None else _visible.split(",")[0]
+
+# H100 SXM memory rate and float32 (non-tensor-core) peak, NVIDIA data sheet.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: check failed: {msg}")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps, warmup=3):
+    """Mean ms of ``fn()`` over ``reps`` back-to-back calls, CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def power_map(z):
+    """|z|^2 as the fused detector forms it."""
+    return z.real * z.real + z.imag * z.imag
+
+
+def phase_kernel_vs_plain(dev):
+    """The kernel against detect_plain on the card at 301 x 411: random
+    maps with targets, the tie case, and more hits than capacity."""
+    import numpy as np
+    import torch
+
+    from blah2_tpu_torch.config import Config
+    from blah2_tpu_torch.dsp.ambiguity import AmbiguityProcessor
+    from blah2_tpu_torch.ops.detect import FusedDetector, detect, detect_plain
+
+    cfg = Config()
+    amb = AmbiguityProcessor(-10, 400, -200, 200, cfg.capture.fs,
+                             cfg.n_samples, device=dev)
+    nr, nc = amb.n_doppler_bins, amb.n_delay_bins
+    check((nr, nc) == (301, 411), f"default geometry {(nr, nc)}")
+    default = FusedDetector.from_config(cfg.process, amb, device=dev)
+    loose = FusedDetector(1e-2, 1, 3, 0, 0.0, 6, 6, 1 / 0.75,
+                          amb.delay_axis, amb.doppler_axis, device=dev)
+    rng = np.random.default_rng(1)
+
+    def noise_map():
+        return (rng.standard_normal((nr, nc))
+                + 1j * rng.standard_normal((nr, nc))).astype(np.complex64)
+
+    targets = noise_map()
+    for r, c, a in [(150, 200, 80.0), (40, 30, 60.0), (250, 400, 40.0),
+                    (151, 201, 30.0)]:
+        targets[r, c] += a
+    tie = np.full((nr, nc), 0.05 + 0j, dtype=np.complex64)
+    tie[200, 200] = tie[200, 205] = 50.0
+    cases = [("targets", targets, default), ("tie", tie, loose),
+             ("overflow", noise_map(), loose)]
+    err = 0.0
+    for name, z, fd in cases:
+        pwr = power_map(torch.from_numpy(z).to(dev)).contiguous()
+        args = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
+                fd.win_cols)
+        got = detect(pwr, *args)
+        want = detect_plain(pwr, *args)
+        torch.cuda.synchronize()
+        check(torch.equal(got.keep, want.keep), f"{name}: keep differs")
+        e = max(float((got.db - want.db).abs().max()),
+                abs(float(got.noise - want.noise)),
+                abs(float(got.rawmax - want.rawmax)))
+        check(e <= 1e-4, f"{name}: db/noise/rawmax differ by {e} dB")
+        err = max(err, e)
+        n_keep = int(got.keep.sum())
+        _, _, _, det = fd(torch.from_numpy(z).to(dev))
+        count = int(det.count)
+        check(count == n_keep, f"{name}: count {count} != kept {n_keep}")
+        print(f"kernel_vs_plain {name}: kept={n_keep} max_abs_err_db={e:.3g}")
+        if name == "tie":
+            cols = sorted(det.col[det.valid].tolist())
+            check(cols == [200, 205], f"tie: kept columns {cols}")
+        if name == "overflow":
+            check(count > fd.max_detections,
+                  f"overflow: {count} hits within capacity")
+            check(bool(det.valid.all()), "overflow: capacity not filled")
+    return err
+
+
+def phase_golden(dev, root):
+    """The golden recording at complex64 through call_quad on the card,
+    against the frozen oracle (bounds of tests/test_golden_parity.py)."""
+    import numpy as np
+
+    from blah2_tpu_torch.config import config_from_dict
+    from blah2_tpu_torch.dsp.pipeline import CpiPipeline
+
+    gdir = os.path.join(root, "tests", "golden")
+    with open(os.path.join(gdir, "golden.json")) as f:
+        g = json.load(f)
+    cmap = np.load(os.path.join(gdir, "oracle_map.npy"))
+    raw = np.fromfile(os.path.join(gdir, "golden_scene.rspduo.iq"),
+                      dtype=np.int16)
+    amb, clu, det = g["ambiguity"], g["clutter"], g["detection"]
+    cfg = config_from_dict({
+        "capture": {"fs": g["scene"]["fs"], "fc": 204_640_000},
+        "process": {
+            "data": {"cpi": g["scene"]["cpi_s"], "buffer": 2},
+            "ambiguity": {"delayMin": amb["delay_min"],
+                          "delayMax": amb["delay_max"],
+                          "dopplerMin": amb["doppler_min"],
+                          "dopplerMax": amb["doppler_max"]},
+            "clutter": {"enable": True, "delayMin": clu["delay_min"],
+                        "delayMax": clu["delay_max"]},
+            "detection": {"enable": True, "pfa": det["pfa"],
+                          "nGuard": det["n_guard"], "nTrain": det["n_train"],
+                          "minDelay": det["min_delay"],
+                          "minDoppler": det["min_doppler"],
+                          "nCentroid": det["n_centroid"]},
+        },
+    })
+    n = cfg.n_samples
+    quads = raw[: n * 4].reshape(n, 4)
+    pipe = CpiPipeline(cfg, device=dev)
+    check(pipe.fused_detector is not None, "cuda pipeline is not fused")
+    out = pipe.call_quad(quads)
+    ref_db = 10 * np.log10(np.abs(cmap))
+    dmax = float(np.abs(out.db_map.cpu().numpy() - ref_db).max())
+    dn = abs(float(out.noise_power) - g["noise_power_db"])
+    dx = abs(float(out.max_power) - g["max_power_db"])
+    print(f"golden complex64: map_err_db={dmax:.4g} noise_err_db={dn:.3g} "
+          f"max_err_db={dx:.3g} clutter_ok={bool(out.clutter_ok)}")
+    check(bool(out.clutter_ok), "golden: clutter solve failed")
+    check(dmax < 0.05, f"golden map off by {dmax} dB")
+    check(dn < 1e-3 and dx < 1e-3, f"golden noise/max off by {dn}/{dx} dB")
+    v = out.detections.valid.cpu().numpy()
+    got = sorted(zip(out.detections.delay.cpu().numpy()[v],
+                     out.detections.doppler.cpu().numpy()[v]))
+    want = sorted((d, f) for d, f, _ in g["interpolated"])
+    check(len(got) == len(want), f"golden detections {got} != {want}")
+    for (d, f), (wd, wf) in zip(got, want):
+        check(abs(d - wd) < 1e-2 and abs(f - wf) < 1e-1,
+              f"golden detection {(d, f)} != {(wd, wf)}")
+
+
+# Limits (card-vs-CPU, card-vs-complex128) in dB on the default config's
+# complex64 map for the cells the 0.05 dB bound leaves out, about twice the
+# readings on an H100 (0.151 and 0.059 dB on the deeper cells, 1.117 and
+# 1.133 dB on the clutter lags; PERF.md, "Numerics on the card").
+DEEP_LIMITS_DB = {"deeper cells": (0.3, 0.12),
+                  "zero-Doppler clutter lags": (2.25, 2.25)}
+
+
+def default_scene(cfg):
+    """Two injected targets in a 1.5 Msample CPI, as 12-bit int16 quads."""
+    import numpy as np
+
+    from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
+
+    # Receiver noise of about 4.5 ADC steps (0.03 x 150) under a direct
+    # path 40 dB above it, as a 12-bit front end is set up in practice, and
+    # targets 30 and 34 dB under the noise per sample (about 32 and 28 dB
+    # over it after the CPI's 62 dB of integration).
+    targets = [TargetSpec(60, -77.0, 1e-3), TargetSpec(250, 112.0, 6e-4)]
+    x, y = synthetic_cpi(cfg.n_samples, cfg.capture.fs, targets,
+                         clutter_amplitude=3.0, noise_amplitude=0.03, seed=11)
+    quads = np.clip(np.round(np.stack([x.real, x.imag, y.real, y.imag],
+                                      axis=1) * 150.0), -2048, 2047)
+    return quads.astype(np.int16), targets
+
+
+def found(out, targets, res):
+    v = out.detections.valid.cpu().numpy()
+    dets = list(zip(out.detections.delay.cpu().numpy()[v],
+                    out.detections.doppler.cpu().numpy()[v]))
+    return [any(abs(d - t.delay_bins) <= 1.0
+                and abs(f - t.doppler_hz) <= 2 * res for d, f in dets)
+            for t in targets], dets
+
+
+def phase_default(dev, root):
+    """The default config on the card through call_quad12 and __call__."""
+    import numpy as np
+    import torch
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.dsp.pipeline import CpiPipeline
+    from blah2_tpu_torch.ops import detect as detect_mod
+    from blah2_tpu_torch.ops.pack12 import pack12_quads
+
+    cfg = load_config(os.path.join(root, "config", "config.yml"))
+    check(cfg.n_samples == 1_500_000, f"n_samples {cfg.n_samples}")
+    quads, targets = default_scene(cfg)
+    packed = torch.from_numpy(pack12_quads(quads)).to(dev)
+    pipe = CpiPipeline(cfg, device=dev)
+    res = pipe.ambiguity.doppler_resolution
+    check(pipe.fused_detector is not None, "cuda pipeline is not fused")
+    check(tuple(pipe.ambiguity._doppler_dft.shape) == (301, 301), "geometry")
+
+    # The main path: counts at 0 just before, read just after.
+    detect_mod.detect.launches = 0
+    out12 = pipe.call_quad12(packed)
+    torch.cuda.synchronize()
+    launches = detect_mod.detect.launches
+    check(launches >= 1, "the main path did not launch the detect kernel")
+
+    out = pipe(quads[:, :2], quads[:, 2:])
+    ok12, dets12 = found(out12, targets, res)
+    ok, dets = found(out, targets, res)
+    print(f"default call_quad12: detections={dets12} "
+          f"noise_db={float(out12.noise_power):.4f} "
+          f"max_db={float(out12.max_power):.4f} "
+          f"clutter_ok={bool(out12.clutter_ok)} launches={launches}")
+    check(bool(out12.clutter_ok), "default: clutter solve failed")
+    check(all(ok12), f"call_quad12 missed a target: {dets12}")
+    check(all(ok), f"__call__ missed a target: {dets}")
+    for k in ("row", "col", "valid", "count"):
+        check(torch.equal(getattr(out.detections, k),
+                          getattr(out12.detections, k)),
+              f"call_quad12 and __call__ disagree on {k}")
+    d_entries = float((out.db_map - out12.db_map).abs().max())
+    check(d_entries <= 1e-4, f"entries' maps differ by {d_entries} dB")
+
+    t0 = time.perf_counter()
+    cpu = CpiPipeline(cfg, fused_detect=True, device="cpu").call_quad12(
+        pack12_quads(quads))
+    t_cpu = time.perf_counter() - t0
+    # Both complex64 maps against a complex128 run of the same CPI.
+    f64 = CpiPipeline(cfg, dtype=torch.complex128, fused_detect=False,
+                      device="cpu").call_quad(quads).db_map.numpy()
+    card_db, cpu_db = out12.db_map.cpu().numpy(), cpu.db_map.numpy()
+    # Two complex64 maps of a 1.5 Msample CPI agree to 0.05 dB only where a
+    # cell is not far below the map's mean: a cell's rounding error is a
+    # share of the whole map's norm (and of the solved clutter weights),
+    # not of the cell. So the 0.05 dB bound holds for every cell no more
+    # than 10 dB under the mean (noise_power). The zero-Doppler cells at the
+    # clutter lags are the deepest: the Wiener filter makes the residual
+    # orthogonal to the reference there, so they hold only what is left of
+    # a cancellation. The deeper cells and the clutter lags have limits of
+    # their own (DEEP_LIMITS_DB), against the CPU and against complex128.
+    amb = pipe.ambiguity
+    noise = float(out12.noise_power)
+    null = np.zeros(card_db.shape, dtype=bool)
+    delay = amb.delay_axis.cpu().numpy()
+    null[amb.doppler_axis.cpu().numpy() == 0.0, :] = \
+        (delay >= cfg.process.clutter.delay_min) \
+        & (delay < cfg.process.clutter.delay_max)
+    bulk = (card_db >= noise - 10.0) & ~null
+    diff = np.abs(cpu_db - card_db)
+    d_bulk = float(diff[bulk].max())
+    ok_cpu, dets_cpu = found(cpu, targets, res)
+    print(f"default card vs cpu: bulk map_err_db={d_bulk:.4g} over "
+          f"{int(bulk.sum())} of {bulk.size} cells; noise_err_db="
+          f"{abs(float(cpu.noise_power) - noise):.3g}; cpu_s={t_cpu:.2f}")
+    for name, m in (("other cells >= noise-10 dB", bulk),
+                    ("deeper cells", ~bulk & ~null),
+                    ("zero-Doppler clutter lags", null)):
+        r, c = np.unravel_index(np.argmax(np.where(m, diff, -1.0)),
+                                diff.shape)
+        d_cpu = float(diff[m].max())
+        d_f64 = float(np.abs(card_db - f64)[m].max())
+        print(f"  {name} ({int(m.sum())}): card-cpu {d_cpu:.4g} dB at "
+              f"({r}, {c}) card {card_db[r, c]:.3f} cpu {cpu_db[r, c]:.3f} "
+              f"f64 {f64[r, c]:.3f}; card-f64 {d_f64:.4g} dB, cpu-f64 "
+              f"{float(np.abs(cpu_db - f64)[m].max()):.4g} dB")
+        if name in DEEP_LIMITS_DB:
+            lim_cpu, lim_f64 = DEEP_LIMITS_DB[name]
+            check(m.any() and d_cpu <= lim_cpu and d_f64 <= lim_f64,
+                  f"{name}: card-cpu {d_cpu} dB (limit {lim_cpu}), card-f64 "
+                  f"{d_f64} dB (limit {lim_f64})")
+    check(d_bulk < 0.05, f"card and CPU maps differ by {d_bulk} dB")
+    check(abs(float(cpu.noise_power) - noise) < 1e-3,
+          "card and CPU noise differ")
+    # At complex128 the rounding that parts the deep cells above is gone:
+    # the card's stages compute the CPU's function on every cell, the
+    # clutter lags included. The unfused chain keeps the dB map in float64
+    # (the fused detector's map is float32 on every device, as in JAX).
+    c128 = CpiPipeline(cfg, dtype=torch.complex128, fused_detect=False,
+                       device=dev).call_quad(quads)
+    d128 = float(np.abs(c128.db_map.cpu().numpy() - f64).max())
+    print(f"default complex128 card vs cpu: map_err_db={d128:.3g} over all "
+          f"{f64.size} cells")
+    check(d128 <= 1e-6, f"complex128 card and CPU maps differ by {d128} dB")
+    for k in ("row", "col", "valid"):
+        check(torch.equal(getattr(cpu.detections, k).to(dev),
+                          getattr(out12.detections, k)),
+              f"card and CPU detections differ on {k}")
+    check(all(ok_cpu), f"the CPU run missed a target: {dets_cpu}")
+    return pipe, packed, launches, out12
+
+
+def phase_timing(pipe, packed, card):
+    """Median ms per CPI (packed-12 bytes on the device to detections) and
+    the detect kernel against detect_plain, with CUDA events."""
+    import torch
+
+    from blah2_tpu_torch.ops.detect import detect, detect_plain
+
+    for _ in range(3):
+        pipe.call_quad12(packed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = pipe.call_quad12(packed)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # The detect kernel at the main path's shapes, on this run's map.
+    z, _ = pipe.cross_map(*pipe.decode_quad12(packed))
+    pwr = power_map(z).contiguous()
+    fd = pipe.fused_detector
+    args = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
+            fd.win_cols)
+    plain_a = cuda_ms(lambda: detect_plain(pwr, *args), 100)
+    kern_a = cuda_ms(lambda: detect(pwr, *args), 200)
+    kern_b = cuda_ms(lambda: detect(pwr, *args), 200)
+    plain_b = cuda_ms(lambda: detect_plain(pwr, *args), 100)
+    nr, nc = pwr.shape
+    bytes_moved = 4 * (4 * nr * nc + nc) + 8
+    # Per cell: log10, the x5, 2*n_train adds, the scale product, two
+    # compares, the separable window max and its compare, two reductions.
+    ops = nr * nc * (1 + 1 + 2 * fd.n_train + 1 + 2
+                     + 2 * (fd.win_rows + fd.win_cols) + 1 + 2)
+    bound_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_o = ops / F32_OPS_PER_S * 1e3
+    timing = {
+        "cpi_ms_median": statistics.median(times),
+        "cpi_ms_min": min(times), "cpi_ms_max": max(times),
+        "cpis": len(times), "peak_mib": peak,
+        "detect_ms": [kern_a, kern_b], "detect_plain_ms": [plain_a, plain_b],
+        "bound_ms": max(bound_b, bound_o),
+        "bound_by": "bytes" if bound_b >= bound_o else "operations",
+        "card": card,
+        "count": int(out.detections.count),
+    }
+    print("timing " + json.dumps(timing))
+    return timing
+
+
+def phase_profile(pipe, packed, cpi_ms):
+    """Device time of a few CPIs by kernel (torch.profiler): the busy time
+    per CPI, the idle share against the timed median, and the detect
+    kernels' own device time per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from blah2_tpu_torch.ops.detect import detect
+
+    n = 5
+    for _ in range(3):
+        pipe.call_quad12(packed)
+    torch.cuda.synchronize()
+    calls = detect.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            pipe.call_quad12(packed)
+        torch.cuda.synchronize()
+    calls = detect.launches - calls
+    by_name: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            t = ev.time_range.elapsed_us()
+            tot, cnt = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + t, cnt + 1)
+    busy_ms = sum(t for t, _ in by_name.values()) / n / 1e3
+    detect_us = sum(t for k, (t, _) in by_name.items() if "detect_" in k) / n
+    # Kernel launches a detect call makes: the kernels named detect_* the
+    # profiler saw, over the wrapper's calls in the window.
+    per_call = sum(c for k, (_, c) in by_name.items() if "detect_" in k) \
+        / max(calls, 1)
+    check(calls == n and per_call == 3,
+          f"{calls} detect calls in {n} CPIs, {per_call} launches a call")
+    prof_out = {
+        "device_busy_ms_per_cpi": busy_ms,
+        "idle_share": (1.0 - busy_ms / cpi_ms) if busy_ms else None,
+        "kernels_per_cpi": sum(c for _, c in by_name.values()) / n,
+        "detect_device_ms": detect_us / 1e3 if detect_us else None,
+        "detect_launches_per_call": per_call,
+        "top": [[k[:80], round(t / n, 2), c // n] for k, (t, c) in sorted(
+            by_name.items(), key=lambda kv: -kv[1][0])[:15]],
+    }
+    print("profile " + json.dumps(prof_out))
+    return prof_out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one",
+              file=sys.stderr)
+        return 2
+    from blah2_tpu_torch.ops import _build
+
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
+    dev = torch.device("cuda", 0)
+
+    t0 = time.perf_counter()
+    lib = _build.build("detect")
+    print(f"build detect.cu: {time.perf_counter() - t0:.2f} s -> "
+          f"{os.path.relpath(lib, ROOT)}")
+    log = lib[:-3] + ".log"
+    if os.path.exists(log):
+        with open(log) as f:
+            print(f.read().strip())
+
+    err = phase_kernel_vs_plain(dev)
+    phase_golden(dev, ROOT)
+    pipe, packed, launches, _ = phase_default(dev, ROOT)
+    timing = phase_timing(pipe, packed, card)
+    prof = phase_profile(pipe, packed, timing["cpi_ms_median"])
+
+    kern_ms = min(timing["detect_ms"])
+    plain_ms = min(timing["detect_plain_ms"])
+    print(f"default config on {card}: {timing['cpi_ms_median']:.3f} ms/CPI "
+          f"median over {timing['cpis']} CPIs (packed-12 on device to "
+          f"detections); detect kernel {kern_ms * 1e3:.2f} us, detect_plain "
+          f"{plain_ms * 1e3:.2f} us, bound {timing['bound_ms'] * 1e3:.3f} us")
+    print(json.dumps({"kernels": [{
+        "name": "detect",
+        "route": "cuda",
+        "source": "blah2_tpu_torch/csrc/detect.cu",
+        "replaces": "blah2_tpu/ops/pallas_detect.py:78",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": kern_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "library_ms": None,
+        "device_ms": prof["detect_device_ms"],
+        "launches_per_call": prof["detect_launches_per_call"],
+    }]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

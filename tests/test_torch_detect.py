@@ -1,0 +1,155 @@
+"""The fused detector of the port: its plain version and ``FusedDetector``
+against the JAX ``FusedDetector`` running its Pallas kernel in interpret
+mode, on the geometries of tests/test_pallas_detect.py. The CUDA kernel
+against its plain version is in tests/test_torch_cuda.py."""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from blah2_tpu.ops.pallas_detect import FusedDetector as JaxFused
+from blah2_tpu_torch.ops import detect as tdetect
+from blah2_tpu_torch.ops.detect import FusedDetector, detect_plain
+
+torch.set_num_threads(1)
+
+
+def _axes(nr, nc, delay_min=-10, doppler_step=2.0):
+    delay_axis = np.arange(delay_min, delay_min + nc, dtype=np.int32)
+    half = nr // 2
+    doppler_axis = doppler_step * np.arange(-half, nr - half, dtype=np.float64)
+    return delay_axis, doppler_axis
+
+
+def _mk_map(nr, nc, seed=0, targets=()):
+    rng = np.random.default_rng(seed)
+    z = (rng.standard_normal((nr, nc)) + 1j * rng.standard_normal((nr, nc)))
+    for (r, c, amp) in targets:
+        z[r, c] += amp
+    return z.astype(np.complex64)
+
+
+CASES = [
+    # (nr, nc, pfa, guard, train, min_delay, min_doppler, n_centroid, cpi_cfg)
+    (31, 53, 1e-3, 2, 6, 5, 6.0, 6, 0.5),
+    (16, 40, 1e-2, 1, 3, 0, 0.0, 3, 0.25),
+    (9, 130, 1e-4, 0, 4, 2, 4.0, 1, 1.0),
+    (64, 64, 1e-3, 3, 5, 5, 2.0, 4, 0.125),
+]
+
+
+def _case_map(case):
+    nr, nc = case[:2]
+    targets = [(nr // 2 + 2, nc // 2, 30.0), (nr // 2 + 2, nc // 2 + 1, 18.0),
+               (3, 7, 25.0), (nr - 2, nc - 3, 22.0)]
+    targets = [(r, c, a) for (r, c, a) in targets if r < nr and c < nc]
+    return _mk_map(nr, nc, seed=nr * nc, targets=targets)
+
+
+def _both(case, max_detections=128):
+    nr, nc, pfa, g, t, min_delay, min_doppler, n_cent, cpi = case
+    delay_axis, doppler_axis = _axes(nr, nc)
+    args = (pfa, g, t, min_delay, min_doppler, n_cent, n_cent, 1.0 / cpi,
+            delay_axis, doppler_axis)
+    port = FusedDetector(*args, max_detections=max_detections, device="cpu")
+    ref = JaxFused(*args, max_detections=max_detections, interpret=True)
+    return port, ref
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(c[:2]) for c in CASES])
+def test_fused_detector_matches_jax_pallas(case):
+    z = _case_map(case)
+    port, ref = _both(case)
+    assert (port.win_rows, port.win_cols) == (ref.win_rows, ref.win_cols)
+    np.testing.assert_array_equal(port._scale.numpy(), ref._scale)
+    np.testing.assert_array_equal(port._cell_ok.numpy(), ref._cell_ok)
+
+    launches = tdetect.detect.launches
+    db, noise, maxp, det = port(torch.from_numpy(z))
+    assert tdetect.detect.launches == launches  # CPU: the plain version
+    jdb, jnoise, jmaxp, jdet = ref(jnp.asarray(z))
+
+    np.testing.assert_allclose(db.numpy(), np.asarray(jdb), rtol=0, atol=2e-4)
+    assert abs(float(noise) - float(jnoise)) <= 1e-4
+    assert abs(float(maxp) - float(jmaxp)) <= 1e-4
+    assert int(det.count) == int(jdet.count)
+    kv, jv = det.valid.numpy(), np.asarray(jdet.valid)
+    np.testing.assert_array_equal(kv, jv)
+    np.testing.assert_array_equal(det.row.numpy()[kv], np.asarray(jdet.row)[jv])
+    np.testing.assert_array_equal(det.col.numpy()[kv], np.asarray(jdet.col)[jv])
+    np.testing.assert_allclose(det.snr.numpy()[kv], np.asarray(jdet.snr)[jv],
+                               atol=2e-3)
+    np.testing.assert_array_equal(det.delay.numpy()[kv],
+                                  np.asarray(jdet.delay)[jv])
+    np.testing.assert_allclose(det.doppler.numpy()[kv],
+                               np.asarray(jdet.doppler)[jv], atol=1e-4)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(c[:2]) for c in CASES])
+def test_detect_plain_matches_jax_kernel_outputs(case):
+    """The plain version against the Pallas kernel's own four outputs."""
+    z = _case_map(case)
+    port, ref = _both(case)
+    pwr = (z.real.astype(np.float32) ** 2 + z.imag.astype(np.float32) ** 2)
+    db, keep, noise, rawmax = detect_plain(
+        torch.from_numpy(pwr), port._scale, port._cell_ok, port.n_guard,
+        port.n_train, port.win_rows, port.win_cols)
+    jdb, jkeep, jnoise, jrawmax = ref._call(
+        jnp.asarray(pwr), jnp.asarray(ref._scale), jnp.asarray(ref._cell_ok))
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+    np.testing.assert_allclose(db.numpy(), np.asarray(jdb), atol=2e-4)
+    assert abs(float(noise) - float(jnoise[0, 0])) <= 1e-4
+    assert abs(float(rawmax) - float(jrawmax[0, 0])) <= 1e-4
+
+
+def _tie_map():
+    z = np.full((16, 40), 0.05 + 0j, dtype=np.complex64)
+    z[8, 20] = 50.0
+    z[8, 25] = 50.0
+    return z
+
+
+def test_fused_tie_both_kept():
+    """Two equal-power hits inside each other's centroid window but beyond
+    CFAR train reach: the strict-inequality centroid keeps both."""
+    delay_axis, doppler_axis = _axes(16, 40)
+    args = (1e-2, 1, 3, 0, 0.0, 6, 6, 2.0, delay_axis, doppler_axis)
+    _, _, _, det = FusedDetector(*args, device="cpu")(torch.from_numpy(
+        _tie_map()))
+    _, _, _, jdet = JaxFused(*args, interpret=True)(jnp.asarray(_tie_map()))
+    keep = det.valid.numpy()
+    assert sorted(det.col.numpy()[keep].tolist()) == [20, 25]
+    jkeep = np.asarray(jdet.valid)
+    assert sorted(np.asarray(jdet.col)[jkeep].tolist()) == [20, 25]
+
+
+def test_capacity_overflow_count():
+    """More hits than capacity: the first K in row-major order, count > K."""
+    case = CASES[1]
+    z = _case_map(case)
+    port, ref = _both(case, max_detections=2)
+    _, _, _, det = port(torch.from_numpy(z))
+    _, _, _, jdet = ref(jnp.asarray(z))
+    assert int(det.count) == int(jdet.count) > 2
+    np.testing.assert_array_equal(det.row.numpy(), np.asarray(jdet.row))
+    np.testing.assert_array_equal(det.col.numpy(), np.asarray(jdet.col))
+
+
+def test_wrapper_checks_what_the_kernel_takes():
+    pwr = torch.ones(4, 6)
+    scale = torch.ones(1, 6)
+    ok = torch.ones(4, 6)
+    tdetect._check(pwr, scale, ok, 1, 2, 1, 1)
+    with pytest.raises(TypeError, match="float32"):
+        tdetect._check(pwr.double(), scale, ok, 1, 2, 1, 1)
+    with pytest.raises(ValueError, match="shape"):
+        tdetect._check(pwr, torch.ones(6), ok, 1, 2, 1, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdetect._check(pwr, scale, torch.ones(6, 4).t(), 1, 2, 1, 1)
+    with pytest.raises(ValueError, match=">= 0"):
+        tdetect._check(pwr, scale, ok, -1, 2, 1, 1)
+    with pytest.raises(ValueError, match="non-empty"):
+        tdetect._check(torch.ones(0, 6), scale, ok, 1, 2, 1, 1)
