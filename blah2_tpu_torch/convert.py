@@ -7,7 +7,11 @@ delay and Doppler axes. In the port they are registered buffers of the
 stage modules, so ``CpiPipeline.state_dict()`` holds them, keyed by the same
 attribute paths as the JAX ``CpiPipeline`` (``ambiguity._doppler_dft``,
 ``fused_detector._scale``, ...). Buffers the port derives for itself (lag
-and permutation indices) are not part of it.
+and permutation indices) are not part of it. The sharded pipeline's
+``state_dict()`` adds its own derived constants under the JAX
+``ShardedCpiPipeline``'s names: the padded Doppler operator ``_w_pad``, the
+padded pre-shift ramp ``_ramp_pad`` (where the Doppler window is off
+centre) and the padded fold twiddle ``_spec_tw_pad``.
 """
 
 from __future__ import annotations
@@ -28,5 +32,5 @@ def pipeline_state_from_numpy(arrays: dict, device=None) -> dict:
     for ``CpiPipeline.load_state_dict``, which checks every key and shape
     and casts to each buffer's dtype."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+    return {k: torch.from_numpy(np.array(v, order="C", copy=True)).to(dev)
             for k, v in arrays.items()}

@@ -1,5 +1,5 @@
-// Fused map metrics + CA-CFAR + centroid suppression on one delay-Doppler
-// power map, for NVIDIA Hopper (sm_90a).
+// Fused map metrics + CA-CFAR + centroid suppression on a stack of
+// delay-Doppler power maps, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel blah2_tpu/ops/pallas_detect.py::_detect_kernel
 // (Pallas). Same function, not the same blocking: the TPU kernel held the
@@ -22,6 +22,12 @@
 //      noise = mean(db) and rawmax = max(0, max db).
 //
 // No float atomics anywhere, so noise is the same on every run.
+//
+// A (B, nr, nc) stack is one call of the same three launches: in the first
+// two the grid's y dimension is the map, the finish has one block per map,
+// and every map gets its own partials, noise and rawmax (the scale and the
+// cell mask are shared). The sharded pipeline detects its batch of CPIs
+// so; a single map is the stack with B = 1.
 //
 // Bound: the function moves pwr and cell_ok in and db and keep out, about
 // 4 x 301 x 411 x 4 B = 2.0 MB (scale and the scalars add 1.7 KB): 0.59 us
@@ -63,6 +69,12 @@ detect_cells(const float* __restrict__ pwr, const float* __restrict__ scale,
   __shared__ float s_sum[kThreads];
   __shared__ float s_max[kThreads];
   const int n = nr * nc;
+  const long long map = static_cast<long long>(blockIdx.y) * n;
+  pwr += map;
+  db += map;
+  hitp += map;
+  part_sum += blockIdx.y * gridDim.x;
+  part_max += blockIdx.y * gridDim.x;
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   float d_sum = 0.0f;
   float d_max = -INFINITY;
@@ -96,6 +108,9 @@ detect_cells(const float* __restrict__ pwr, const float* __restrict__ scale,
 __global__ void __launch_bounds__(kThreads)
 detect_keep(const float* __restrict__ hitp, float* __restrict__ keep, int nr,
             int nc, int win_rows, int win_cols) {
+  const long long map = static_cast<long long>(blockIdx.y) * nr * nc;
+  hitp += map;
+  keep += map;
   const int idx = blockIdx.x * kThreads + threadIdx.x;
   if (idx >= nr * nc) return;
   const float h = hitp[idx];
@@ -124,6 +139,8 @@ detect_finish(const float* __restrict__ part_sum,
               float* __restrict__ rawmax) {
   __shared__ float s_sum[kThreads];
   __shared__ float s_max[kThreads];
+  part_sum += blockIdx.x * n_parts;
+  part_max += blockIdx.x * n_parts;
   float a = 0.0f;
   float m = -INFINITY;
   for (int b = threadIdx.x; b < n_parts; b += kThreads) {
@@ -135,8 +152,8 @@ detect_finish(const float* __restrict__ part_sum,
   __syncthreads();
   block_sum_max(s_sum, s_max);
   if (threadIdx.x == 0) {
-    noise[0] = s_sum[0] * inv_cells;
-    rawmax[0] = fmaxf(0.0f, s_max[0]);
+    noise[blockIdx.x] = s_sum[0] * inv_cells;
+    rawmax[blockIdx.x] = fmaxf(0.0f, s_max[0]);
   }
 }
 
@@ -144,38 +161,44 @@ int n_blocks(int nr, int nc) { return (nr * nc + kThreads - 1) / kThreads; }
 
 }  // namespace
 
-// Floats of scratch the launcher needs: the hit-power map, then the
-// per-block partial sums and maxima.
-extern "C" int detect_scratch_floats(int nr, int nc) {
-  return nr * nc + 2 * n_blocks(nr, nc);
+// Floats of scratch the launcher needs for a stack of ``batch`` maps: the
+// hit-power maps, then the per-block partial sums and maxima of each map.
+extern "C" long long detect_scratch_floats(int batch, int nr, int nc) {
+  return static_cast<long long>(batch) * (nr * nc + 2 * n_blocks(nr, nc));
 }
 
 extern "C" int detect_launch(const void* pwr, const void* scale,
                              const void* cell_ok, void* db, void* keep,
-                             void* scratch, void* noise, void* rawmax, int nr,
-                             int nc, int n_guard, int n_train, int win_rows,
-                             int win_cols, void* stream) {
+                             void* scratch, void* noise, void* rawmax,
+                             int batch, int nr, int nc, int n_guard,
+                             int n_train, int win_rows, int win_cols,
+                             void* stream) {
+  if (batch < 1 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int blocks = n_blocks(nr, nc);
+  const dim3 grid(blocks, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* hitp = static_cast<float*>(scratch);
-  float* part_sum = hitp + nr * nc;
-  float* part_max = part_sum + blocks;
+  float* part_sum = hitp + static_cast<long long>(batch) * nr * nc;
+  float* part_max = part_sum + static_cast<long long>(batch) * blocks;
 
-  detect_cells<<<blocks, kThreads, 0, s>>>(
+  detect_cells<<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(pwr), static_cast<const float*>(scale),
       static_cast<const float*>(cell_ok), static_cast<float*>(db), hitp,
       part_sum, part_max, nr, nc, n_guard, n_train);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  detect_keep<<<blocks, kThreads, 0, s>>>(hitp, static_cast<float*>(keep), nr,
-                                          nc, win_rows, win_cols);
+  detect_keep<<<grid, kThreads, 0, s>>>(hitp, static_cast<float*>(keep), nr,
+                                        nc, win_rows, win_cols);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const float inv_cells = static_cast<float>(1.0 / (double(nr) * nc));
-  detect_finish<<<1, kThreads, 0, s>>>(part_sum, part_max, blocks, inv_cells,
-                                       static_cast<float*>(noise),
-                                       static_cast<float*>(rawmax));
+  detect_finish<<<batch, kThreads, 0, s>>>(part_sum, part_max, blocks,
+                                           inv_cells,
+                                           static_cast<float*>(noise),
+                                           static_cast<float*>(rawmax));
   return static_cast<int>(cudaGetLastError());
 }

@@ -66,15 +66,17 @@ def cfar_threshold_scale(pfa: float, n_guard: int, n_train: int,
 
 
 def extract_topk(flat_mask: torch.Tensor, n_cols: int, max_detections: int):
-    """Fixed-capacity index extraction in row-major scan order.
+    """Fixed-capacity index extraction in row-major scan order, over the
+    last dimension of ``flat_mask`` (leading dimensions batch).
 
     The K smallest of (index where hit, else n_cells) are the first K hit
     indices. Returns (row, col, valid, count)."""
-    n_cells = flat_mask.shape[0]
-    count = torch.sum(flat_mask).to(torch.int32)
+    n_cells = flat_mask.shape[-1]
+    count = torch.sum(flat_mask, dim=-1).to(torch.int32)
     score = torch.where(
         flat_mask, torch.arange(n_cells, device=flat_mask.device), n_cells)
-    idx = torch.topk(score, max_detections, largest=False, sorted=True).values
+    idx = torch.topk(score, max_detections, dim=-1, largest=False,
+                     sorted=True).values
     valid = idx < n_cells
     idx = torch.clamp(idx, max=n_cells - 1)
     return idx // n_cols, idx % n_cols, valid, count

@@ -27,9 +27,27 @@ import torch
 from torch import nn
 
 from blah2_tpu_torch.device import real_dtype, resolve_device
-from blah2_tpu_torch.dsp.hamming import next_fft_size
+from blah2_tpu_torch.dsp.hamming import next_fft_size, segment_fft_size
 from blah2_tpu_torch.ops.corr import _right_halo_segments, choose_segments
 from blah2_tpu_torch.ops.toeplitz import hermitian_toeplitz
+
+
+def solve_normal_equations(a: torch.Tensor, b: torch.Tensor,
+                           diag_load: float = 0.0):
+    """Wiener-Hopf weights from the lag vectors ``a`` (autocorrelation) and
+    ``b`` (cross-correlation), leading dimensions batching, and the success
+    flag per solve, both on the device with no host sync: ``cholesky_ex``
+    reports a matrix that is not positive definite in ``info``, and w is
+    zero where the solve failed."""
+    mat = hermitian_toeplitz(a)
+    if diag_load > 0.0:
+        load = (diag_load * a[..., 0].real).to(a.dtype)[..., None, None]
+        mat = mat + load * torch.eye(a.shape[-1], dtype=a.dtype,
+                                     device=mat.device)
+    chol, info = torch.linalg.cholesky_ex(mat)
+    w = torch.cholesky_solve(b[..., None], chol)[..., 0]
+    ok = (info == 0) & torch.all(torch.isfinite(w), dim=-1)
+    return torch.where(ok[..., None], w, torch.zeros_like(w)), ok
 
 
 class WienerHopfFilter(nn.Module):
@@ -51,7 +69,8 @@ class WienerHopfFilter(nn.Module):
         super().__init__()
         if mode not in ("circular", "linear"):
             raise ValueError(f"unknown clutter mode {mode!r}")
-        resolve_device(device)  # no buffers; raises where there is no card
+        # No buffers; raises where there is no card.
+        device_type = resolve_device(device).type
         self.mode = mode
         self.delay_min = int(delay_min)
         self.delay_max = int(delay_max)
@@ -75,8 +94,8 @@ class WienerHopfFilter(nn.Module):
         if self.n_seg and self.n_samples // self.n_seg <= self.n_bins - 1:
             self.n_seg = 0
         if self.n_seg:
-            self.nfft_seg = next_fft_size(
-                self.n_samples // self.n_seg + self.n_bins - 1)
+            self.nfft_seg = segment_fft_size(
+                self.n_samples // self.n_seg + self.n_bins - 1, device_type)
 
     def _shifted(self, x: torch.Tensor) -> torch.Tensor:
         """Reference channel shifted by delay_min: circularly, or with zero
@@ -93,15 +112,7 @@ class WienerHopfFilter(nn.Module):
     def _solve(self, a: torch.Tensor, b: torch.Tensor):
         """Weights w of the normal equations and the success flag (both on
         the device; no host sync). w is zero where the solve failed."""
-        mat = hermitian_toeplitz(a)
-        if self.diag_load > 0.0:
-            load = (self.diag_load * a[0].real).to(self.dtype)
-            mat = mat + load * torch.eye(self.n_bins, dtype=self.dtype,
-                                         device=mat.device)
-        chol, info = torch.linalg.cholesky_ex(mat)
-        w = torch.cholesky_solve(b[:, None], chol)[:, 0]
-        ok = (info == 0) & torch.all(torch.isfinite(w))
-        return torch.where(ok, w, torch.zeros_like(w)), ok
+        return solve_normal_equations(a, b, self.diag_load)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor):
         """Filter one CPI.

@@ -49,3 +49,24 @@ def next_fft_size(value: int) -> int:
     :func:`next_hamming`): the cuFFT compute size for a transform that
     needs at least ``value`` points."""
     return next_hamming(value - 1)
+
+
+#: Segment FFT sizes that a card replaces, measured with
+#: ``tools/torch_stage_precision.py`` on an NVIDIA H100 80GB HBM3 at 700 W:
+#: at the default config's single-device segments, cuFFT's complex64
+#: 16,200-point transforms (2³·3⁴·5²) put the map's clutter-lag cells 1.13 dB
+#: from complex128, its 16,384-point ones 0.25 dB, for 1–2 % more clutter
+#: filter device time. The sharded paths' picks (18,000 and 23,328) round no
+#: worse than their power-of-two-rich rivals (18,432, 24,576) and stay.
+CUDA_SEGMENT_SIZE_SWAPS = {16200: 16384}
+
+
+def segment_fft_size(value: int, device_type: str) -> int:
+    """The clutter filter's segment FFT size for a segment that needs at
+    least ``value`` points, on a device of type ``device_type``:
+    :func:`next_fft_size`, with :data:`CUDA_SEGMENT_SIZE_SWAPS` applied on
+    a card (PERF.md, Findings)."""
+    size = next_fft_size(value)
+    if device_type == "cuda":
+        return CUDA_SEGMENT_SIZE_SWAPS.get(size, size)
+    return size

@@ -69,9 +69,42 @@ class SpectrumAnalyser(nn.Module):
             x.reshape(self.decimation, self.n_spectrum) * self._twiddle, dim=0)
         return self.finish(folded)
 
+    def twiddle_padded(self, pad_to: int) -> torch.Tensor:
+        """Flat fold twiddle zero-extended to ``pad_to`` samples. The zero
+        extension doubles as the k < nfft mask: contributions from samples
+        at global index ≥ nfft vanish."""
+        tw = self._twiddle.reshape(-1)
+        out = tw.new_zeros(pad_to)
+        out[: tw.shape[0]] = tw
+        return out
+
+    def fold_partial(self, x_loc: torch.Tensor, offset: int,
+                     tw_pad: torch.Tensor, bucket_origin: int = 0
+                     ) -> torch.Tensor:
+        """Local contribution to the folded (n_spectrum,) vector from a
+        contiguous block (last dimension; leading dimensions batch) at
+        global sample ``offset``: the sharded form of the fold in
+        ``forward``. Each rank folds its own time block, and the
+        (n_spectrum,) partials psum over the pulse axis instead of the
+        block being gathered.
+
+        ``bucket_origin``: global sample index of fold bucket 0 (0 for the
+        full-CPI spectrum, a segment's start for sub-CPI spectra)."""
+        ns = self.n_spectrum
+        length = x_loc.shape[-1]
+        prod = x_loc.to(self.dtype) * tw_pad[offset: offset + length]
+        pad = (-length) % ns
+        if pad:
+            prod = torch.nn.functional.pad(prod, (0, pad))
+        local = torch.sum(prod.reshape(prod.shape[:-1] + (-1, ns)), dim=-2)
+        # Bucket j of the fold is (offset − bucket_origin + i) mod ns for
+        # local i: rotate the local sums to bucket alignment.
+        return torch.roll(local, (offset - bucket_origin) % ns, dims=-1)
+
     def finish(self, folded: torch.Tensor) -> torch.Tensor:
-        """Small n_spectrum-point FFT + reference bin permutation."""
-        return torch.fft.fft(folded)[self._perm]
+        """Small n_spectrum-point FFT + reference bin permutation (over the
+        last dimension)."""
+        return torch.fft.fft(folded, dim=-1)[..., self._perm]
 
     @staticmethod
     def to_db(spectrum: torch.Tensor) -> torch.Tensor:

@@ -40,51 +40,57 @@ from blah2_tpu_torch.dsp.cfar import (CfarDetections, cfar_threshold_scale,
 
 
 class DetectKernelOutputs(NamedTuple):
-    db: torch.Tensor      # (nr, nc) f32 absolute dB map
-    keep: torch.Tensor    # (nr, nc) f32 {0,1}: CFAR hit surviving centroid
-    noise: torch.Tensor   # () f32 mean dB
-    rawmax: torch.Tensor  # () f32 max(0, max dB)
+    db: torch.Tensor      # ([B,] nr, nc) f32 absolute dB map
+    keep: torch.Tensor    # ([B,] nr, nc) f32 {0,1}: hit surviving centroid
+    noise: torch.Tensor   # ([B]) f32 mean dB of each map
+    rawmax: torch.Tensor  # ([B]) f32 max(0, max dB) of each map
 
 
 def detect_plain(pwr: torch.Tensor, scale: torch.Tensor,
                  cell_ok: torch.Tensor, n_guard: int, n_train: int,
                  win_rows: int, win_cols: int) -> DetectKernelOutputs:
-    """The detect function in plain torch, the kernel's twin: ``pwr`` (nr,
-    nc) f32 power map, ``scale`` (1, nc) α/N, ``cell_ok`` (nr, nc) {0, 1}."""
-    nr, nc = pwr.shape
+    """The detect function in plain torch, the kernel's twin: ``pwr`` an
+    (nr, nc) f32 power map or a (B, nr, nc) stack of them, ``scale``
+    (1, nc) α/N, ``cell_ok`` (nr, nc) {0, 1}, both shared by the stack."""
+    nr, nc = pwr.shape[-2:]
     db = 5.0 * torch.log10(pwr)
-    noise = torch.sum(db) * (1.0 / (nr * nc))
-    rawmax = torch.clamp(torch.max(db), min=0.0)
+    noise = torch.sum(db, dim=(-2, -1)) * (1.0 / (nr * nc))
+    rawmax = torch.clamp(torch.amax(db, dim=(-2, -1)), min=0.0)
 
     # Train sums in the kernel's order: for each offset, left then right.
     # Left cells read a copy with column 0 zeroed (the k>0 quirk).
     pwr_l = pwr.clone()
-    pwr_l[:, 0] = 0.0
+    pwr_l[..., 0] = 0.0
     left = F.pad(pwr_l, (n_guard + n_train, 0))
     right = F.pad(pwr, (0, n_guard + n_train))
     train = torch.zeros_like(pwr)
     for o in range(n_guard + 1, n_guard + n_train + 1):
-        train = train + left[:, n_guard + n_train - o: n_guard + n_train - o + nc]
-        train = train + right[:, o: o + nc]
+        train = train + left[..., n_guard + n_train - o:
+                             n_guard + n_train - o + nc]
+        train = train + right[..., o: o + nc]
     hit = (pwr > scale * train) & (cell_ok > 0.0)
 
     # Window max of hit power; power is >= 0 and the window holds its own
     # cell, so max pooling's -inf padding is the clipped window.
     m = torch.where(hit, pwr, 0.0)
-    wmax = F.max_pool2d(m[None, None], (2 * win_rows + 1, 2 * win_cols + 1),
-                        stride=1, padding=(win_rows, win_cols))[0, 0]
+    wmax = F.max_pool2d(m.reshape(-1, 1, nr, nc),
+                        (2 * win_rows + 1, 2 * win_cols + 1), stride=1,
+                        padding=(win_rows, win_cols)).reshape(pwr.shape)
     keep = (hit & (pwr >= wmax)).to(torch.float32)
     return DetectKernelOutputs(db, keep, noise, rawmax)
 
 
 def _check(pwr, scale, cell_ok, *ints):
-    if pwr.dim() != 2 or pwr.numel() == 0:
-        raise ValueError(f"detect: pwr must be a non-empty 2-D map, got "
-                         f"shape {tuple(pwr.shape)}")
-    nr, nc = pwr.shape
+    if pwr.dim() not in (2, 3) or pwr.numel() == 0:
+        raise ValueError(f"detect: pwr must be a non-empty (nr, nc) map or "
+                         f"(B, nr, nc) stack, got shape {tuple(pwr.shape)}")
+    nr, nc = pwr.shape[-2:]
     if nr * nc >= 2 ** 31:
         raise ValueError("detect: map too large for 32-bit indexing")
-    want = {"pwr": (pwr, (nr, nc)), "scale": (scale, (1, nc)),
+    if pwr.dim() == 3 and not 1 <= pwr.shape[0] <= 65535:
+        raise ValueError(f"detect: a stack holds 1 to 65535 maps, got "
+                         f"{pwr.shape[0]}")
+    want = {"pwr": (pwr, tuple(pwr.shape)), "scale": (scale, (1, nc)),
             "cell_ok": (cell_ok, (nr, nc))}
     for name, (t, shape) in want.items():
         if t.device != pwr.device:
@@ -104,8 +110,8 @@ def _check(pwr, scale, cell_ok, *ints):
 class DetectKernel:
     """Wrapper of the CUDA kernel ``csrc/detect.cu``: CPU tensors take
     :func:`detect_plain`; CUDA tensors launch the kernel (three launches on
-    the current stream) or raise. ``launches`` counts the calls that
-    launched the kernel."""
+    the current stream, for one map or a (B, nr, nc) stack) or raise.
+    ``launches`` counts the calls that launched the kernel."""
 
     def __init__(self):
         self.launches = 0
@@ -117,9 +123,9 @@ class DetectKernel:
 
             lib = _build.load("detect")
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.detect_scratch_floats.argtypes = [ci, ci]
-            lib.detect_scratch_floats.restype = ci
-            lib.detect_launch.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+            lib.detect_scratch_floats.argtypes = [ci, ci, ci]
+            lib.detect_scratch_floats.restype = ctypes.c_longlong
+            lib.detect_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
             lib.detect_launch.restype = ci
             self._lib = lib
         return self._lib
@@ -134,19 +140,22 @@ class DetectKernel:
             raise ValueError(f"detect: unsupported device {pwr.device}")
         _check(pwr, scale, cell_ok, n_guard, n_train, win_rows, win_cols)
         lib = self._library()
-        nr, nc = pwr.shape
+        nr, nc = pwr.shape[-2:]
+        batch = pwr.shape[0] if pwr.dim() == 3 else 1
         db = torch.empty_like(pwr)
         keep = torch.empty_like(pwr)
-        noise = torch.empty((), dtype=torch.float32, device=pwr.device)
-        rawmax = torch.empty((), dtype=torch.float32, device=pwr.device)
-        scratch = torch.empty(lib.detect_scratch_floats(nr, nc),
+        noise = torch.empty(pwr.shape[:-2], dtype=torch.float32,
+                            device=pwr.device)
+        rawmax = torch.empty_like(noise)
+        scratch = torch.empty(lib.detect_scratch_floats(batch, nr, nc),
                               dtype=torch.float32, device=pwr.device)
         with torch.cuda.device(pwr.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.detect_launch(
                 pwr.data_ptr(), scale.data_ptr(), cell_ok.data_ptr(),
                 db.data_ptr(), keep.data_ptr(), scratch.data_ptr(),
-                noise.data_ptr(), rawmax.data_ptr(), nr, nc, int(n_guard),
+                noise.data_ptr(), rawmax.data_ptr(), batch, nr, nc,
+                int(n_guard),
                 int(n_train), int(win_rows), int(win_cols), stream)
         if err != 0:
             raise RuntimeError(f"detect kernel launch failed: CUDA error {err}")
@@ -230,21 +239,28 @@ class FusedDetector(nn.Module):
         )
 
     def forward(self, z: torch.Tensor):
-        """z: complex (nr, nc) ambiguity map. Returns ``(db, noise,
-        max_power, detections)``."""
+        """z: complex (nr, nc) ambiguity map, or a (B, nr, nc) stack of
+        them in one kernel call. Returns ``(db, noise, max_power,
+        detections)``, each with the stack's leading dimension."""
         zr, zi = z.real, z.imag
-        pwr = (zr * zr + zi * zi).to(torch.float32)
+        pwr = (zr * zr + zi * zi).to(torch.float32).contiguous()
         db, keep, noise, rawmax = detect(
             pwr, self._scale, self._cell_ok, self.n_guard, self.n_train,
             self.win_rows, self.win_cols)
-        row, col, valid, count = extract_topk(
-            keep.reshape(-1) > 0.0, self.n_cols, self.max_detections)
+        lead = pwr.shape[:-2]
+        flat = keep.reshape(lead + (-1,)) > 0.0
+        row, col, valid, count = extract_topk(flat, self.n_cols,
+                                              self.max_detections)
+        if lead:
+            snr = db.reshape(lead + (-1,)).gather(-1, row * self.n_cols + col)
+        else:
+            snr = db[row, col]
         det = CfarDetections(
             row=row,
             col=col,
             delay=self._delay_f32[col],
             doppler=self._doppler_f32[row],
-            snr=db[row, col] - noise,
+            snr=snr - noise.unsqueeze(-1),
             valid=valid,
             count=count,
         )

@@ -1,0 +1,83 @@
+"""Neighbour halo exchange for the (cpi, pulse)-sharded pipeline
+(counterpart of ``blah2_tpu/parallel/halo.py``).
+
+Two interchangeable backends behind one interface, under the JAX package's
+names so that a ``--halo-backend`` option passes through unchanged:
+
+  - ``"ppermute"``: the open-chain permute of ``parallel/collectives.py``,
+    zeros where a rank has no source: the linear (zero-extended) boundary
+    the overlap-save decomposition needs.
+  - ``"pallas"``: the hand-written CUDA kernel ``csrc/halo.cu`` on a card
+    (``ops/halo.py``), and its plain twin on the CPU. The permute is
+    circular; the wrap-around edge is masked to zero here, as the JAX code
+    does. Data crosses as real/imaginary planes, and complex is re-formed on
+    the receiving rank.
+
+A sharded value is a list with one tensor per rank of the mesh; the halo is
+taken along the last dimension, so a leading CPI batch rides along.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from blah2_tpu_torch.ops.halo import halo_permute
+from blah2_tpu_torch.parallel.collectives import (ppermute_from_next,
+                                                  ppermute_from_prev, record)
+from blah2_tpu_torch.parallel.mesh import RadarMesh
+
+BACKENDS = ("ppermute", "pallas")
+
+
+def _as_planes(v: torch.Tensor):
+    """Complex → contiguous (..., 2) real planes and the complex dtype;
+    real tensors pass as they are (made contiguous)."""
+    if v.is_complex():
+        return torch.stack([v.real, v.imag], dim=-1), v.dtype
+    return v.contiguous(), None
+
+
+def _from_planes(p: torch.Tensor, cdtype):
+    if cdtype is None:
+        return p
+    return torch.complex(p[..., 0], p[..., 1]).to(cdtype)
+
+
+def _shift(parts: List[torch.Tensor], mesh: RadarMesh, axis: str,
+           backend: str, collective_id: int, from_next: bool):
+    if backend == "ppermute":
+        fn = ppermute_from_next if from_next else ppermute_from_prev
+        return fn(parts, mesh, axis)
+    if backend != "pallas":
+        raise ValueError(f"unknown halo backend {backend!r}")
+    record(mesh, "permute", axis, parts[0].shape, parts[0].dtype)
+    planes = [_as_planes(p) for p in parts]
+    got = halo_permute([p for p, _ in planes], mesh, axis, to_left=from_next,
+                       collective_id=collective_id)
+    edge = mesh.shape[axis] - 1 if from_next else 0
+    out = []
+    for r, (g, (_, cdtype)) in enumerate(zip(got, planes)):
+        v = _from_planes(g, cdtype)
+        out.append(torch.zeros_like(v) if mesh.axis_index(r, axis) == edge
+                   else v)
+    return out
+
+
+def shift_from_next(vs: List[torch.Tensor], count: int, mesh: RadarMesh,
+                    axis: str = "pulse", backend: str = "ppermute",
+                    collective_id: int = 0) -> List[torch.Tensor]:
+    """First ``count`` samples of the *next* rank's block (d ← d+1); zeros
+    on the last rank of each ring (linear/zero-extended boundary)."""
+    return _shift([v[..., :count] for v in vs], mesh, axis, backend,
+                  collective_id, from_next=True)
+
+
+def shift_from_prev(vs: List[torch.Tensor], count: int, mesh: RadarMesh,
+                    axis: str = "pulse", backend: str = "ppermute",
+                    collective_id: int = 0) -> List[torch.Tensor]:
+    """Last ``count`` samples of the *previous* rank's block (d ← d−1);
+    zeros on rank 0 of each ring."""
+    return _shift([v[..., -count:] for v in vs], mesh, axis, backend,
+                  collective_id, from_next=False)

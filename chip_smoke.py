@@ -4,10 +4,13 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``.
-It builds the CUDA kernel from ``blah2_tpu_torch/csrc``, holds it against
-its plain PyTorch version, runs the golden recording and the default
-config (1.5 Msample CPIs, a 301 x 411 map) through the pipeline's user
-entry points, times them with CUDA events, and prints as its last line
+It builds the CUDA kernels from ``blah2_tpu_torch/csrc`` (the fused
+detector and the halo exchange, both ``nvcc`` runs started together),
+holds each against its plain PyTorch version, runs the golden recording and
+the default config (1.5 Msample CPIs, a 301 x 411 map) through the
+single-device pipeline's entry points, then the default config through the
+sharded pipeline on 1 x 4 and 2 x 2 meshes of logical ranks on the one
+card, times both paths with CUDA events, and prints as its last line
 ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
 exits non-zero and prints no result. It imports nothing of the JAX package.
 """
@@ -20,6 +23,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -127,6 +131,33 @@ def phase_kernel_vs_plain(dev):
             check(count > fd.max_detections,
                   f"overflow: {count} hits within capacity")
             check(bool(det.valid.all()), "overflow: capacity not filled")
+
+    # A (2, nr, nc) stack in one call: the tie map and an overflowing map.
+    zs = torch.from_numpy(np.stack([tie, noise_map()])).to(dev)
+    pwr = power_map(zs).contiguous()
+    args = (loose._scale, loose._cell_ok, loose.n_guard, loose.n_train,
+            loose.win_rows, loose.win_cols)
+    got = detect(pwr, *args)
+    want = detect_plain(pwr, *args)
+    torch.cuda.synchronize()
+    check(torch.equal(got.keep, want.keep), "stack: keep differs")
+    e = max(float((got.db - want.db).abs().max()),
+            float((got.noise - want.noise).abs().max()),
+            float((got.rawmax - want.rawmax).abs().max()))
+    check(e <= 1e-4, f"stack: db/noise/rawmax differ by {e} dB")
+    err = max(err, e)
+    for i in range(2):
+        one = detect(pwr[i].contiguous(), *args)
+        check(torch.equal(one.keep, got.keep[i])
+              and torch.equal(one.noise, got.noise[i]),
+              f"stack: map {i} differs from its own call")
+    _, _, _, det = loose(zs)
+    cols = sorted(det.col[0][det.valid[0]].tolist())
+    check(cols == [200, 205], f"stack: tie kept columns {cols}")
+    check(int(det.count[1]) > loose.max_detections
+          and bool(det.valid[1].all()), "stack: overflow map not capped")
+    print(f"kernel_vs_plain stack of 2: kept={int(got.keep.sum())} "
+          f"max_abs_err_db={e:.3g}")
     return err
 
 
@@ -188,13 +219,14 @@ def phase_golden(dev, root):
 
 # Limits (card-vs-CPU, card-vs-complex128) in dB on the default config's
 # complex64 map for the cells the 0.05 dB bound leaves out, about twice the
-# readings on an H100 (0.151 and 0.059 dB on the deeper cells, 1.117 and
-# 1.133 dB on the clutter lags; PERF.md, "Numerics on the card").
-DEEP_LIMITS_DB = {"deeper cells": (0.3, 0.12),
-                  "zero-Doppler clutter lags": (2.25, 2.25)}
+# readings on an H100 with the card's 16,384-point clutter segments (0.094
+# and 0.038 dB on the deeper cells, 0.181 and 0.253 dB on the clutter lags;
+# PERF.md, Findings).
+DEEP_LIMITS_DB = {"deeper cells": (0.19, 0.08),
+                  "zero-Doppler clutter lags": (0.36, 0.5)}
 
 
-def default_scene(cfg):
+def default_scene(cfg, seed=11):
     """Two injected targets in a 1.5 Msample CPI, as 12-bit int16 quads."""
     import numpy as np
 
@@ -206,7 +238,8 @@ def default_scene(cfg):
     # over it after the CPI's 62 dB of integration).
     targets = [TargetSpec(60, -77.0, 1e-3), TargetSpec(250, 112.0, 6e-4)]
     x, y = synthetic_cpi(cfg.n_samples, cfg.capture.fs, targets,
-                         clutter_amplitude=3.0, noise_amplitude=0.03, seed=11)
+                         clutter_amplitude=3.0, noise_amplitude=0.03,
+                         seed=seed)
     quads = np.clip(np.round(np.stack([x.real, x.imag, y.real, y.imag],
                                       axis=1) * 150.0), -2048, 2047)
     return quads.astype(np.int16), targets
@@ -435,6 +468,279 @@ def phase_profile(pipe, packed, cpi_ms):
     return prof_out
 
 
+HALO_MESHES = ((1, 2), (1, 4), (1, 8), (2, 4))
+HALO_PAYLOADS = ((409, 2), (10, 2), (1, 2))
+
+
+def one_card_mesh(dev, shape):
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+
+    return make_radar_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+
+
+def phase_halo_vs_plain(dev):
+    """The halo kernel against halo_permute_plain on meshes of logical
+    ranks on the one card, both directions, the main path's payloads, for
+    equality; then 1,000 back-to-back calls with a new payload each, every
+    call checked on the device, and the kernel's error word."""
+    import torch
+
+    from blah2_tpu_torch.ops.halo import halo_permute, halo_permute_plain
+
+    cases = 0
+    err = torch.zeros((), device=dev)
+    for shape in HALO_MESHES:
+        mesh = one_card_mesh(dev, shape)
+        for to_left in (True, False):
+            for cid, payload in enumerate(HALO_PAYLOADS):
+                bufs = [torch.randn(payload, device=dev)
+                        for _ in range(mesh.size)]
+                got = halo_permute(bufs, mesh, to_left=to_left,
+                                   collective_id=cid)
+                want = halo_permute_plain(bufs, mesh, to_left=to_left)
+                torch.cuda.synchronize()
+                check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                      f"halo {shape} to_left={to_left} {payload} differs")
+                for g, w in zip(got, want):
+                    err = torch.maximum(err, (g - w).abs().max())
+                cases += 1
+    mesh = one_card_mesh(dev, (1, 4))
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    n_calls = 1000
+    for i in range(n_calls):
+        to_left = i % 2 == 0
+        bufs = [torch.randn(HALO_PAYLOADS[0], device=dev) for _ in range(4)]
+        got = halo_permute(bufs, mesh, to_left=to_left, collective_id=i % 4)
+        want = halo_permute_plain(bufs, mesh, to_left=to_left)
+        for g, w in zip(got, want):
+            bad += (g != w).sum()
+            err = torch.maximum(err, (g - w).abs().max())
+    word = halo_permute.error()
+    n_bad, err = int(bad), float(err)
+    print(f"halo_vs_plain: {cases} cases equal; {n_calls} back-to-back "
+          f"calls, {n_bad} differing values, max_abs_err {err}; error word "
+          f"{word}")
+    check(n_bad == 0 and err == 0.0,
+          f"{n_bad} values differ over the repeated calls")
+    check(word == 0, f"halo kernel error word {word}")
+    return err
+
+
+def cpi_of(out, i):
+    """CPI ``i`` of a batched output, shaped as ``found`` reads it."""
+    class One:
+        detections = out.detections._replace(
+            **{k: getattr(out.detections, k)[i]
+               for k in out.detections._fields})
+    return One
+
+
+def det_set(det, i):
+    v = det.valid[i]
+    return set(zip(det.row[i][v].tolist(), det.col[i][v].tolist()))
+
+
+def phase_sharded(dev, root):
+    """The default config through the sharded pipeline on 1 x 4 and 2 x 2
+    meshes of logical ranks on the card: the halo kernel against the
+    ppermute backend, complex128 against the single-device linear pipeline,
+    both targets at complex64, the halo launches of one step, and the fused
+    detector on the batch against the unfused chain."""
+    import numpy as np
+    import torch
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.dsp.pipeline import CpiPipeline
+    from blah2_tpu_torch.ops.detect import detect
+    from blah2_tpu_torch.ops.halo import halo_permute
+    from blah2_tpu_torch.parallel.collectives import count_bytes, summarize
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    cfg = load_config(os.path.join(root, "config", "config.yml"))
+    scenes = [default_scene(cfg, seed) for seed in (11, 12)]
+    targets = scenes[0][1]
+    xb = np.stack([(q[:, 0] + 1j * q[:, 1]) for q, _ in scenes])
+    yb = np.stack([(q[:, 2] + 1j * q[:, 3]) for q, _ in scenes])
+    single = CpiPipeline(cfg, dtype=torch.complex128, clutter_mode="linear",
+                         fused_detect=False, device=dev)
+    refs = [single(xb[i], yb[i]) for i in range(2)]
+    launches = {}
+    for shape in ((1, 4), (2, 2)):
+        mesh = one_card_mesh(dev, shape)
+        b = max(1, shape[0])
+        outs = {}
+        for backend in ("ppermute", "pallas"):
+            sp = ShardedCpiPipeline(cfg, mesh, halo_backend=backend,
+                                    use_fused_detect=True)
+            planes = sp.shard_inputs(xb[:b], yb[:b])
+            torch.cuda.synchronize()
+            # The sharded main path: counts at 0 just before, read after.
+            halo_permute.launches = detect.launches = 0
+            with count_bytes(mesh) as ops:
+                outs[backend] = sp(*planes)
+            torch.cuda.synchronize()
+            launches[shape, backend] = (halo_permute.launches,
+                                        detect.launches)
+        comm = summarize(ops)
+        n_dev = len(mesh.distinct_devices())
+        check(launches[shape, "pallas"] == (4 * n_dev, 1),
+              f"{shape}: halo/detect launches of one step "
+              f"{launches[shape, 'pallas']}, want ({4 * n_dev}, 1)")
+        check(launches[shape, "ppermute"][0] == 0,
+              f"{shape}: the ppermute backend launched the halo kernel")
+        a, p = outs["ppermute"], outs["pallas"]
+        check(torch.equal(a.db_map, p.db_map), f"{shape}: backends' maps")
+        for k in a.detections._fields:
+            check(torch.equal(getattr(a.detections, k),
+                              getattr(p.detections, k)),
+                  f"{shape}: backends' detections differ on {k}")
+        res = sp.ambiguity.doppler_resolution
+        for i in range(b):
+            ok, dets = found(cpi_of(p, i), targets, res)
+            check(all(ok), f"{shape}: complex64 sharded missed a target in "
+                  f"CPI {i}: {dets}")
+        check(bool(p.clutter_ok.all()), f"{shape}: clutter solve failed")
+
+        # The unfused chain on the same batch.
+        sp_u = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas")
+        u = sp_u(*sp_u.shard_inputs(xb[:b], yb[:b]))
+        d_map = float((u.db_map - p.db_map).abs().max())
+        d_noise = float((u.noise_power - p.noise_power).abs().max())
+        check(d_map <= 1e-4 and d_noise <= 1e-4,
+              f"{shape}: fused and unfused differ by {d_map}/{d_noise} dB")
+        for i in range(b):
+            check(det_set(u.detections, i) == det_set(p.detections, i),
+                  f"{shape}: fused and unfused detections differ, CPI {i}")
+
+        # complex128 against the single-device linear pipeline.
+        sp128 = ShardedCpiPipeline(cfg, mesh, dtype=torch.complex128,
+                                   halo_backend="pallas")
+        o128 = sp128(*sp128.shard_inputs(xb[:b], yb[:b]))
+        d128 = max(float((o128.db_map[i] - refs[i].db_map).abs().max())
+                   for i in range(b))
+        dn128 = max(abs(float(o128.noise_power[i] - refs[i].noise_power))
+                    for i in range(b))
+        for i in range(b):
+            check(det_set(o128.detections, i) == {
+                (r, c) for r, c in zip(
+                    refs[i].detections.row[refs[i].detections.valid].tolist(),
+                    refs[i].detections.col[refs[i].detections.valid].tolist())},
+                f"{shape}: complex128 detections differ from single, CPI {i}")
+        check(d128 <= 1e-6 and dn128 <= 1e-6,
+              f"{shape}: complex128 sharded vs single {d128}/{dn128} dB")
+        print(f"sharded {shape[0]}x{shape[1]}: nfft_seg={sp.nfft_seg} "
+              f"segments={sp.n_seg_local}x{sp.seg_len} "
+              f"halo/detect launches={launches[shape, 'pallas']} "
+              f"collective bytes a rank a step={json.dumps(comm)} "
+              f"detections={dets} fused-unfused map {d_map:.3g} dB; "
+              f"complex128 vs single map {d128:.3g} dB noise {dn128:.3g} dB")
+    word = halo_permute.error()
+    check(word == 0, f"halo kernel error word {word}")
+    return launches[(1, 4), "pallas"][0]
+
+
+def phase_sharded_timing(dev, root, card):
+    """The sharded CPI on a 1 x 4 mesh on the card (complex64, halo kernel,
+    fused detector): ms per step by CUDA events from planes on the device
+    to detections, peak memory, and from the profiler the device busy time,
+    the kernels per CPI and the halo kernel's device time per launch; then
+    the halo kernel at the (409, 2) payload against its plain twin and one
+    Tensor.copy_ per rank."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.ops.halo import (_source, halo_permute,
+                                          halo_permute_plain)
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    cfg = load_config(os.path.join(root, "config", "config.yml"))
+    quads, _ = default_scene(cfg)
+    mesh = one_card_mesh(dev, (1, 4))
+    sp = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas",
+                            use_fused_detect=True)
+    planes = sp.shard_inputs(quads[:, 0] + 1j * quads[:, 1],
+                             quads[:, 2] + 1j * quads[:, 3])
+    for _ in range(3):
+        sp(*planes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sp(*planes)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    n = 5
+    calls = halo_permute.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            sp(*planes)
+        torch.cuda.synchronize()
+    calls = halo_permute.launches - calls
+    by_name: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            t = ev.time_range.elapsed_us()
+            tot, cnt = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + t, cnt + 1)
+    busy_ms = sum(t for t, _ in by_name.values()) / n / 1e3
+    halo_us = sum(t for k, (t, _) in by_name.items() if "halo_permute" in k)
+    halo_n = sum(c for k, (_, c) in by_name.items() if "halo_permute" in k)
+    check(halo_n == calls == 4 * n,
+          f"{halo_n} halo kernels and {calls} launches in {n} CPIs")
+    median = statistics.median(times)
+
+    # The halo kernel alone at the main path's (409, 2) payload.
+    bufs = [torch.randn(HALO_PAYLOADS[0], device=dev) for _ in range(4)]
+    dst = [torch.empty_like(b) for b in bufs]
+    src = _source(mesh, "pulse", True)
+
+    def library():
+        for r, s in enumerate(src):
+            dst[r].copy_(bufs[s])
+
+    def kernel():
+        halo_permute(bufs, mesh, to_left=True)
+
+    def plain():
+        halo_permute_plain(bufs, mesh, to_left=True)
+
+    plain_a = cuda_ms(plain, 200)
+    kern_a = cuda_ms(kernel, 500)
+    lib_a = cuda_ms(library, 500)
+    lib_b = cuda_ms(library, 500)
+    kern_b = cuda_ms(kernel, 500)
+    plain_b = cuda_ms(plain, 200)
+    word = halo_permute.error()
+    check(word == 0, f"halo kernel error word {word}")
+    # Each input read once and each output written once: 4 ranks' payloads.
+    halo_bytes = 2 * 4 * bufs[0].numel() * 4
+    timing = {
+        "mesh": "1x4", "cpi_ms_median": median, "cpi_ms_min": min(times),
+        "cpi_ms_max": max(times), "cpis": len(times), "peak_mib": peak,
+        "device_busy_ms_per_cpi": busy_ms,
+        "idle_share": 1.0 - busy_ms / median,
+        "kernels_per_cpi": sum(c for _, c in by_name.values()) / n,
+        "halo_device_ms": halo_us / max(halo_n, 1) / 1e3,
+        "halo_ms": [kern_a, kern_b], "halo_plain_ms": [plain_a, plain_b],
+        "halo_library_ms": [lib_a, lib_b],
+        "halo_bound_ms": halo_bytes / HBM_BYTES_PER_S * 1e3,
+        "card": card, "count": out.detections.count.tolist(),
+        "top": [[k[:80], round(t / n, 2), c // n] for k, (t, c) in sorted(
+            by_name.items(), key=lambda kv: -kv[1][0])[:12]],
+    }
+    print("sharded_timing " + json.dumps(timing))
+    return timing
+
+
 def main() -> int:
     import torch
 
@@ -453,20 +759,28 @@ def main() -> int:
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
     dev = torch.device("cuda", 0)
 
+    # One nvcc per source, all started together.
     t0 = time.perf_counter()
-    lib = _build.build("detect")
-    print(f"build detect.cu: {time.perf_counter() - t0:.2f} s -> "
-          f"{os.path.relpath(lib, ROOT)}")
-    log = lib[:-3] + ".log"
-    if os.path.exists(log):
-        with open(log) as f:
-            print(f.read().strip())
+    names = ("detect", "halo")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = list(pool.map(_build.build, names))
+    print(f"build {', '.join(n + '.cu' for n in names)}: "
+          f"{time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        print(f"-> {os.path.relpath(lib, ROOT)}")
+        log = lib[:-3] + ".log"
+        if os.path.exists(log):
+            with open(log) as f:
+                print(f.read().strip())
 
     err = phase_kernel_vs_plain(dev)
+    halo_err = phase_halo_vs_plain(dev)
     phase_golden(dev, ROOT)
     pipe, packed, launches, _ = phase_default(dev, ROOT)
     timing = phase_timing(pipe, packed, card)
     prof = phase_profile(pipe, packed, timing["cpi_ms_median"])
+    halo_launches = phase_sharded(dev, ROOT)
+    sh = phase_sharded_timing(dev, ROOT, card)
 
     kern_ms = min(timing["detect_ms"])
     plain_ms = min(timing["detect_plain_ms"])
@@ -474,6 +788,11 @@ def main() -> int:
           f"median over {timing['cpis']} CPIs (packed-12 on device to "
           f"detections); detect kernel {kern_ms * 1e3:.2f} us, detect_plain "
           f"{plain_ms * 1e3:.2f} us, bound {timing['bound_ms'] * 1e3:.3f} us")
+    print(f"sharded default config, 1 x 4 ranks on {card}: "
+          f"{sh['cpi_ms_median']:.3f} ms/CPI median over {sh['cpis']} CPIs "
+          f"(planes on device to detections); halo kernel "
+          f"{min(sh['halo_ms']) * 1e3:.2f} us a call, "
+          f"{sh['halo_device_ms'] * 1e3:.2f} us device")
     print(json.dumps({"kernels": [{
         "name": "detect",
         "route": "cuda",
@@ -488,6 +807,19 @@ def main() -> int:
         "library_ms": None,
         "device_ms": prof["detect_device_ms"],
         "launches_per_call": prof["detect_launches_per_call"],
+    }, {
+        "name": "halo",
+        "route": "cuda",
+        "source": "blah2_tpu_torch/csrc/halo.cu",
+        "replaces": "blah2_tpu/parallel/halo.py:49",
+        "launches": halo_launches,
+        "max_abs_err": halo_err,
+        "ms": min(sh["halo_ms"]),
+        "plain_ms": min(sh["halo_plain_ms"]),
+        "bound_ms": sh["halo_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": min(sh["halo_library_ms"]),
+        "device_ms": sh["halo_device_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 These tests import no JAX, so they also run where JAX is not installed:
 
@@ -99,3 +99,150 @@ def test_kernel_rejects_what_it_does_not_take(card):
                        1, 1)
     with pytest.raises(ValueError, match="is on"):
         tdetect.detect(pwr, scale.cpu(), pwr, 1, 2, 1, 1)
+
+
+@pytest.mark.cuda
+def test_batched_kernel_matches_plain_on_card(card):
+    """One call on a (B, nr, nc) stack: each map against detect_plain on
+    the stack and against the kernel's own 2-D call."""
+    z_t, args_t = _cases()["default-targets"]
+    z_o, _ = _cases()["default-overflow"]
+    fd = FusedDetector(*args_t, device=card)
+    zc = torch.from_numpy(np.stack([z_t, z_o])).to(card)
+    pwr = (zc.real * zc.real + zc.imag * zc.imag).contiguous()
+    kw = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
+          fd.win_cols)
+    got = tdetect.detect(pwr, *kw)
+    want = detect_plain(pwr, *kw)
+    torch.cuda.synchronize()
+    assert got.noise.shape == (2,) and got.keep.shape == pwr.shape
+    assert torch.equal(got.keep, want.keep)
+    assert float((got.db - want.db).abs().max()) <= 1e-4
+    assert float((got.noise - want.noise).abs().max()) <= 1e-4
+    assert float((got.rawmax - want.rawmax).abs().max()) <= 1e-4
+    for i in range(2):
+        one = tdetect.detect(pwr[i].contiguous(), *kw)
+        assert torch.equal(one.keep, got.keep[i])
+        assert torch.equal(one.noise, got.noise[i])
+
+
+def _halo_case(card, shape, count, seed):
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+
+    mesh = make_radar_mesh(*shape, devices=[card] * (shape[0] * shape[1]))
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    bufs = [torch.randn((count, 2), generator=gen).to(card)
+            for _ in range(mesh.size)]
+    return mesh, bufs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 4)], ids=["1x4", "2x4"])
+@pytest.mark.parametrize("to_left", [True, False], ids=["left", "right"])
+def test_halo_kernel_matches_plain_on_card(card, shape, to_left):
+    """csrc/halo.cu against halo_permute_plain, all ranks on one card, over
+    repeated calls with new payloads (a stale buffer or epoch shows)."""
+    from blah2_tpu_torch.ops.halo import halo_permute, halo_permute_plain
+
+    for i, count in enumerate([409, 10, 1] * 4):
+        mesh, bufs = _halo_case(card, shape, count, seed=i)
+        launches = halo_permute.launches
+        got = halo_permute(bufs, mesh, "pulse", to_left=to_left,
+                           collective_id=i % 4)
+        want = halo_permute_plain(bufs, mesh, "pulse", to_left=to_left)
+        torch.cuda.synchronize()
+        assert halo_permute.launches == launches + 1  # one card, one launch
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert halo_permute.error() == 0
+
+
+@pytest.mark.cuda
+def test_halo_kernel_rejects_what_it_does_not_take(card):
+    from blah2_tpu_torch.ops.halo import halo_permute
+
+    mesh, bufs = _halo_case(card, (1, 4), 8, seed=0)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        halo_permute([b.half() for b in bufs], mesh)
+    with pytest.raises(ValueError, match="contiguous"):
+        halo_permute([torch.ones(2, 8, device=card).t()] * 4, mesh)
+    with pytest.raises(ValueError, match="collective_id"):
+        halo_permute(bufs, mesh, collective_id=99)
+    with pytest.raises(ValueError, match="one shape"):
+        halo_permute(bufs[:3] + [bufs[3][:4]], mesh)
+
+
+@pytest.mark.cuda
+def test_halo_kernel_two_cards(card):
+    """A 1 x 2 mesh over two cards: the kernel writes into the peer card's
+    buffer (one launch per card) and matches the plain permute."""
+    from blah2_tpu_torch.ops.halo import halo_permute, halo_permute_plain
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    mesh = make_radar_mesh(1, 2, devices=devs)
+    for to_left in (True, False):
+        bufs = [torch.randn(409, 2, device=d) for d in devs]
+        launches = halo_permute.launches
+        got = halo_permute(bufs, mesh, to_left=to_left)
+        want = halo_permute_plain(bufs, mesh, to_left=to_left)
+        for d in devs:
+            torch.cuda.synchronize(d)
+        assert halo_permute.launches == launches + 2
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert halo_permute.error() == 0
+
+
+@pytest.mark.cuda
+def test_sharded_pipeline_across_cards(card):
+    """A 1 x n mesh over n >= 2 cards (up to 4): the halo kernel writes
+    into the peer cards' buffers, and the products equal the ppermute
+    backend's, and a one-card mesh's within float32 rounding."""
+    from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
+    from blah2_tpu_torch.config import config_from_dict
+    from blah2_tpu_torch.ops.halo import halo_permute
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    cfg = config_from_dict({
+        "capture": {"fs": 80_000, "fc": 204_640_000},
+        "process": {
+            "data": {"cpi": 0.2},
+            "ambiguity": {"delayMin": -5, "delayMax": 60,
+                          "dopplerMin": -100, "dopplerMax": 100},
+            "clutter": {"enable": True, "delayMin": -5, "delayMax": 30},
+            "detection": {"enable": True, "pfa": 1e-5, "nGuard": 2,
+                          "nTrain": 6, "minDelay": 5, "minDoppler": 15,
+                          "nCentroid": 6}}})
+    x, y = synthetic_cpi(cfg.n_samples, cfg.capture.fs,
+                         [TargetSpec(20, -44.0, 0.1)],
+                         clutter_amplitude=2.0, noise_amplitude=1e-3, seed=0)
+    cards = make_radar_mesh(1, n, devices=[torch.device("cuda", i)
+                                           for i in range(n)])
+    outs = {}
+    for name, mesh, backend in (("cards", cards, "pallas"),
+                                ("cards-ppermute", cards, "ppermute"),
+                                ("one", make_radar_mesh(
+                                    1, n, devices=[card] * n), "pallas")):
+        sp = ShardedCpiPipeline(cfg, mesh, halo_backend=backend,
+                                use_fused_detect=True)
+        launches = halo_permute.launches
+        outs[name] = sp(*sp.shard_inputs(x, y))
+        for i in range(n):
+            torch.cuda.synchronize(i)
+        want = {"cards": 4 * n, "cards-ppermute": 0, "one": 4}[name]
+        assert halo_permute.launches - launches == want
+    a, b, c = outs["cards"], outs["cards-ppermute"], outs["one"]
+    assert torch.equal(a.db_map, b.db_map)
+    for k in a.detections._fields:
+        assert torch.equal(getattr(a.detections, k), getattr(b.detections, k))
+    assert float((a.db_map - c.db_map).abs().max()) <= 1e-4
+    v = a.detections.valid[0]
+    assert bool(torch.any((a.detections.delay[0][v] - 20).abs() < 1.0))
+    assert halo_permute.error() == 0

@@ -153,3 +153,44 @@ def test_wrapper_checks_what_the_kernel_takes():
         tdetect._check(pwr, scale, ok, -1, 2, 1, 1)
     with pytest.raises(ValueError, match="non-empty"):
         tdetect._check(torch.ones(0, 6), scale, ok, 1, 2, 1, 1)
+
+
+@pytest.mark.parametrize("case", CASES[:2], ids=["31x53", "16x40"])
+def test_batched_stack_matches_each_map(case):
+    """A (B, nr, nc) stack through detect_plain and FusedDetector gives each
+    map's own result, and the JAX detector's, map by map (the sharded
+    pipeline detects its CPI batch in one call)."""
+    port, ref = _both(case, max_detections=8)
+    nr, nc = case[:2]
+    zs = np.stack([_case_map(case), _mk_map(nr, nc, seed=5),
+                   _mk_map(nr, nc, seed=6, targets=[(2, 3, 40.0)])])
+    z = torch.from_numpy(zs)
+    pwr = (z.real * z.real + z.imag * z.imag).contiguous()
+    kw = (port._scale, port._cell_ok, port.n_guard, port.n_train,
+          port.win_rows, port.win_cols)
+    stack = detect_plain(pwr, *kw)
+    assert stack.noise.shape == (3,) and stack.keep.shape == pwr.shape
+    db, noise, max_power, det = port(z)
+    assert det.row.shape == (3, 8) and det.count.shape == (3,)
+    for i in range(3):
+        one = detect_plain(pwr[i], *kw)
+        assert torch.equal(stack.keep[i], one.keep)
+        assert torch.equal(stack.db[i], one.db)
+        assert abs(float(stack.noise[i] - one.noise)) <= 1e-5
+        _, _, _, d1 = port(z[i])
+        for k in d1._fields:
+            got = getattr(det, k)[i]
+            if k == "snr":
+                torch.testing.assert_close(got, getattr(d1, k), atol=1e-5,
+                                           rtol=0)
+            else:
+                assert torch.equal(got, getattr(d1, k)), k
+        jdb, jnoise, jmax, jdet = ref(jnp.asarray(zs[i]))
+        assert abs(float(noise[i]) - float(jnoise)) <= 1e-4
+        assert abs(float(max_power[i]) - float(jmax)) <= 1e-3
+        jv = np.asarray(jdet.valid)
+        v = det.valid[i].numpy()
+        np.testing.assert_array_equal(det.row[i].numpy()[v],
+                                      np.asarray(jdet.row)[jv])
+        np.testing.assert_array_equal(det.col[i].numpy()[v],
+                                      np.asarray(jdet.col)[jv])

@@ -31,8 +31,16 @@ from blah2_tpu_torch.config import Config
 from blah2_tpu_torch.convert import pipeline_state_to_numpy
 from blah2_tpu_torch.dsp.pipeline import CpiPipeline, entry
 from blah2_tpu_torch.capture.synthetic import synthetic_cpi
+from blah2_tpu_torch.ops.halo import halo_permute
+from blah2_tpu_torch.parallel import collectives, halo
+from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+from blah2_tpu_torch.parallel.sharded import (ShardedCpiPipeline,
+                                              calibrate_row_shard)
 pipe = CpiPipeline(Config(), device="cpu")
 pipeline_state_to_numpy(pipe)
+sharded = ShardedCpiPipeline(Config(), make_radar_mesh(
+    1, 4, devices=["cpu"] * 4), halo_backend="pallas")
+pipeline_state_to_numpy(sharded)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "blah2_tpu"
              or m.startswith("blah2_tpu."))
@@ -136,3 +144,16 @@ def test_hamming_golden_and_fft_size():
         assert f == v or next_hamming(v) == f  # smallest: inclusive
     assert next_fft_size(10000) == 10000
     assert not is_hamming(0) and not is_hamming(7) and is_hamming(6750)
+
+
+def test_segment_fft_size_swaps_on_the_card():
+    """The card replaces the 16,200-point clutter segments of the default
+    config with 16,384 points (measured: PERF.md, Findings); the CPU keeps
+    the 5-smooth pick, and so do the sharded paths' sizes."""
+    from blah2_tpu_torch.dsp.hamming import next_fft_size, segment_fft_size
+
+    assert segment_fft_size(16_034, "cpu") == 16_200
+    assert segment_fft_size(16_034, "cuda") == 16_384
+    for need in (17_623, 23_210, 5_000, 16_201):
+        assert segment_fft_size(need, "cuda") == next_fft_size(need) == \
+            segment_fft_size(need, "cpu")

@@ -5,6 +5,7 @@ deep cells.
     python3 tools/torch_stage_precision.py                 # card, then CPU
     python3 tools/torch_stage_precision.py --small --devices cpu
     python3 tools/torch_stage_precision.py --nfft-seg 16200,16384
+    python3 tools/torch_stage_precision.py --mesh 1x4 --nfft-seg 18000,18432
 
 Runs one CPI (the two-target scene of ``chip_smoke.py``, at the default
 config, or at the verify recipe's 20,000-sample scene with ``--small``)
@@ -20,7 +21,14 @@ own methods: the all-complex64 variant must give ``CpiPipeline.cross_map``'s
 map bit for bit, and the script fails if it does not. ``--nfft-seg`` runs
 the whole table once for each segment FFT size given (the clutter filter's
 own pick when omitted); the map's value does not depend on that size, its
-rounding does.
+rounding does. On a card, each size also gets a ``timing`` line: the
+complex64 clutter filter's device time per call (``torch.profiler``, the
+sum of its kernels over 10 calls) and its time per call by CUDA events.
+
+``--mesh CxP`` runs the sharded pipeline (``parallel/sharded.py``) instead,
+with C × P logical ranks on the device: per segment FFT size, the complex64
+map against the complex128 one over the same three sets of cells, and the
+clutter stage's device and event times.
 """
 
 from __future__ import annotations
@@ -105,6 +113,78 @@ def cell_sets(db, pipe, cfg):
     return {"bulk": bulk, "deep": ~bulk & ~null, "clutter_lags": null}
 
 
+def stage_times(fn, device, n=10):
+    """Device ms per call of ``fn`` (the profiler's kernel time summed over
+    ``n`` calls) and ms per call by CUDA events over the same count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not str(device).startswith("cuda"):
+        return {}
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return {"device_ms": busy_us / n / 1e3,
+            "event_ms": start.elapsed_time(end) / n}
+
+
+def run_sharded(device, cfg, quads, card, shape, nfft_seg=None):
+    """The sharded complex64 map against the complex128 one on a
+    ``shape`` mesh of logical ranks on ``device``, and the clutter stage's
+    times."""
+    import numpy as np
+    import torch
+
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    mesh = make_radar_mesh(*shape, devices=[device] * (shape[0] * shape[1]))
+    xb = np.repeat((quads[:, 0] + 1j * quads[:, 1])[None], shape[0], axis=0)
+    yb = np.repeat((quads[:, 2] + 1j * quads[:, 3])[None], shape[0], axis=0)
+    maps, times = {}, {}
+    for dt in (torch.complex128, torch.complex64):
+        sp = ShardedCpiPipeline(cfg, mesh, dtype=dt)
+        if nfft_seg:
+            if nfft_seg < sp.seg_len + sp.nb - 1:
+                raise ValueError(f"segment FFT size {nfft_seg} is too short")
+            sp.nfft_seg = nfft_seg
+        xp, yp = sp.shard_inputs(xb, yb)
+        maps[dt] = sp(xp, yp).db_map[0].double().cpu().numpy()
+        if dt == torch.complex64:
+            from blah2_tpu_torch.device import complex_of_parts
+
+            xs = [complex_of_parts(p[..., 0], p[..., 1], dt) for p in xp]
+            ys = [complex_of_parts(p[..., 0], p[..., 1], dt) for p in yp]
+            times = stage_times(lambda: sp._clutter_block(xs, ys), device)
+            size = sp.nfft_seg
+    ref = maps[torch.complex128]
+    err = np.abs(maps[torch.complex64] - ref)
+    sets = cell_sets(ref, sp, cfg)
+    line = {"device": device, "mesh": f"{shape[0]}x{shape[1]}",
+            "complex64": "all", "nfft_seg": size,
+            "cells": {k: int(m.sum()) for k, m in sets.items()}}
+    line.update({f"{k}_max_err_db": float(err[m].max())
+                 for k, m in sets.items()})
+    line.update({f"clutter_{k}": v for k, v in times.items()})
+    if card:
+        line["card"] = card
+    print(json.dumps(line), flush=True)
+
+
 def run(device, cfg, quads, card, nfft_seg=None):
     import numpy as np
     import torch
@@ -147,6 +227,13 @@ def run(device, cfg, quads, card, nfft_seg=None):
         if card:
             line["card"] = card
         print(json.dumps(line), flush=True)
+    x64, y64 = x.to(torch.complex64), y.to(torch.complex64)
+    times = stage_times(lambda: p64.clutter(x64, y64), device)
+    if times:
+        print(json.dumps({"device": device, "timing": "clutter filter",
+                          "complex64": "all",
+                          "nfft_seg": p64.clutter.nfft_seg, **times,
+                          "card": card}), flush=True)
 
 
 def main() -> int:
@@ -158,6 +245,8 @@ def main() -> int:
                          "config")
     ap.add_argument("--nfft-seg", default="",
                     help="comma-separated segment FFT sizes to run at")
+    ap.add_argument("--mesh", default="",
+                    help="CxP: the sharded pipeline on C x P logical ranks")
     args = ap.parse_args()
     import torch
 
@@ -177,7 +266,12 @@ def main() -> int:
                  "--format=csv,noheader"], capture_output=True, text=True,
                 check=True, timeout=60).stdout.strip().splitlines()[0]
         for size in args.nfft_seg.split(",") if args.nfft_seg else [None]:
-            run(device, cfg, quads, card, int(size) if size else None)
+            size = int(size) if size else None
+            if args.mesh:
+                shape = tuple(int(v) for v in args.mesh.split("x"))
+                run_sharded(device, cfg, quads, card, shape, size)
+            else:
+                run(device, cfg, quads, card, size)
     return 0
 
 
