@@ -1,204 +1,462 @@
 // Fused map metrics + CA-CFAR + centroid suppression on a stack of
-// delay-Doppler power maps, for NVIDIA Hopper (sm_90a).
+// delay-Doppler maps, for NVIDIA Hopper (sm_90a), in one launch.
 //
 // Replaces the TPU kernel blah2_tpu/ops/pallas_detect.py::_detect_kernel
 // (Pallas). Same function, not the same blocking: the TPU kernel held the
 // whole map in VMEM; the map (301 x 411 f32 = 0.5 MB at the default config)
-// is larger than one SM's 227 KB of shared memory, and the dB sum and max
-// reach across every block. So the work is three launches on one stream:
+// is larger than one SM's 227 KB of shared memory. So the map is cut into
+// tiles of kTileRows x kTileCols cells, one block of kThreads threads each:
+// grid (column tiles, row tiles, maps). At 301 x 411 that is 9 x 13 = 117
+// blocks, one wave on the H100's 132 SMs. Of the tiles 16 x 72, 24 x 48,
+// 32 x 36 and 12 x 96, 24 x 48 was the fastest on an H100
+// (tools/torch_detect_probe.py): taller tiles load fewer halo rows,
+// narrower ones more halo columns.
 //
-//   1. detect_cells, one thread per cell: db = 5*log10(p); the CA-CFAR
-//      train sum, added in the JAX kernel's order (for o = g+1..g+t: the
-//      left cell j-o if j-o >= 1 -- the reference's k>0 quirk --, then the
-//      right cell j+o if j+o < nc); hit = p > scale[j]*train && cell_ok;
-//      the hit power (0 where no hit) to a scratch map; one partial dB sum
-//      and one partial dB max per block, from a fixed-order shared-memory
-//      tree.
-//   2. detect_keep, one thread per cell: keep = hit && p >= the max of the
-//      hit-power scratch over +-win_rows x +-win_cols, clipped at the map
-//      edges (a tie keeps both, as the reference's strict-inequality
-//      pairwise scan does). Cells without a hit skip the window.
-//   3. detect_finish, one block: the partials in a fixed order to
-//      noise = mean(db) and rawmax = max(0, max db).
+// Input: a float32 power map, or a complex64 map z whose power the block
+// forms itself while it loads, p = re*re + im*im with __fmul_rn/__fadd_rn,
+// so nvcc cannot contract it into an FMA and p rounds as the plain twin's
+// separate product and sum do.
 //
-// No float atomics anywhere, so noise is the same on every run.
+// Per block, in shared memory:
 //
-// A (B, nr, nc) stack is one call of the same three launches: in the first
-// two the grid's y dimension is the map, the finish has one block per map,
-// and every map gets its own partials, noise and rawmax (the scale and the
-// cell mask are shared). The sharded pipeline detects its batch of CPIs
-// so; a single map is the stack with B = 1.
+//   1. Every load first, in one loop in which a thread issues its loads for
+//      kUnroll cells before it stores any, so that it waits on memory about
+//      once and not once a cell: the power and cell_ok of the tile with a
+//      halo of win_rows rows above and below and n_guard + n_train +
+//      win_cols columns left and right (0 outside the map), and scale. At
+//      the default config (2 guard, 6 train, 5 x 5 window) that is 34 x 74
+//      cells. A row of 411 complex64 values is 3,288 B and of 411 floats
+//      1,644 B, neither a multiple of 16 B, so TMA cannot load it (it needs
+//      16 B strides); the block loads with coalesced 4 or 8 B loads.
+//   2. Hit power M (p where hit, else 0) over the tile with the window
+//      halo, in place of cell_ok. CFAR runs along delay only, so the halo's
+//      hits need nothing from another block. The train sum is added in the
+//      reference order (for o = g+1..g+t: the left cell j-o, then the right
+//      cell j+o), with j the map's column, not the tile's; the reference's
+//      edges (left cells from column 1, right cells below nc) hold because
+//      map column 0 is kept apart and cells outside the map are 0, and
+//      adding 0 changes no sum. hit = p > scale[j]*train && cell_ok.
+//   3. The window max of M along Doppler (rows), then per cell along delay
+//      (columns), as the TPU kernel's separable max; M >= 0 and cells
+//      outside the map are 0, which is the window clipped at the edges.
+//      Only a hit needs its window max, so the row pass runs only for tile
+//      rows that hold a hit, and the column pass only at hit cells.
+//      keep = hit && p >= wmax: a tie keeps both cells, as the reference's
+//      strict-inequality pairwise scan does.
+//   4. db = 5*log10(p) and keep into registers; the block's dB sum and max
+//      to one partial per block, in a fixed order (warp shuffles, then the
+//      warps in order).
 //
-// Bound: the function moves pwr and cell_ok in and db and keep out, about
-// 4 x 301 x 411 x 4 B = 2.0 MB (scale and the scalars add 1.7 KB): 0.59 us
-// at 3.35 TB/s. Its arithmetic (about 40 f32 operations a cell) is an order
-// below that. So it is bound by bytes, and at this size in practice by the
-// three launches (a few us each) and not by either. Over the byte bound
-// the passes add: the hit-power scratch written and read back (0.5 MB each
-// way), the window reads of pass 2 (from L1/L2, only around hit cells), and
-// two launch gaps. Making it fast is later work (one persistent launch with
-// a grid-wide barrier, or row tiles with halos in shared memory).
+// noise = mean(db) and rawmax = max(0, max db) in the same launch: each
+// block writes its partials and takes an integer ticket per map with an
+// acq_rel atomicAdd; the block that draws the last ticket sums the partials
+// in a fixed order, writes noise and rawmax, and resets the counter to 0
+// for the next launch on the stream. No float atomics, so the result is the
+// same on every run. The cells of db and keep are stored after the ticket,
+// so that its release waits for no map store.
 //
-// Interface: plain C, bound from Python with ctypes. The launcher enqueues
-// on the caller's stream, does not synchronise, and returns
-// cudaGetLastError() after each launch (0 on success).
+// Bound: the function reads the map (4 B a cell as float32 power, 8 B as
+// complex64) and cell_ok (4 B) and writes db and keep (4 B each): 16 or
+// 20 B a cell, 2.0 or 2.5 MB at 301 x 411, 0.59 or 0.74 us at 3.35 TB/s.
+// Its arithmetic (about 40 f32 operations a cell) is an order below. The
+// halos add reads from L2 (34 x 74 loaded for 24 x 48 kept at the default
+// config, 2.2 times), not device memory traffic. At this size the kernel
+// is bound by neither: a launch, five dependent phases over one wave of
+// blocks, and the last block's reduction set its time.
+//
+// Interface: plain C, bound from Python with ctypes. The launcher makes
+// `device` current where it is not, enqueues on the given stream, does not
+// synchronise, and returns cudaGetLastError() (0 on success).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;
+// The tile, and where a probe build stops (DETECT_CUT = n returns after
+// phase n; 0, the default, after none): tools/torch_detect_probe.py builds
+// copies with -DDETECT_TILE_ROWS/-DDETECT_TILE_COLS or -DDETECT_CUT.
+#ifndef DETECT_TILE_ROWS
+#define DETECT_TILE_ROWS 24
+#endif
+#ifndef DETECT_TILE_COLS
+#define DETECT_TILE_COLS 48
+#endif
+#ifndef DETECT_CUT
+#define DETECT_CUT 0
+#endif
+constexpr int kTileRows = DETECT_TILE_ROWS;
+constexpr int kTileCols = DETECT_TILE_COLS;
+constexpr int kStaticSmem = 2 * kWarps * 4 + 16;
 
-__device__ __forceinline__ void block_sum_max(float* s_sum, float* s_max) {
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      s_sum[threadIdx.x] += s_sum[threadIdx.x + s];
-      s_max[threadIdx.x] = fmaxf(s_max[threadIdx.x], s_max[threadIdx.x + s]);
+// A probe cut: every thread returns after phase n, after a store (never
+// taken) of a value the phases made, so that the compiler keeps their work.
+#define DETECT_CUT_AFTER(n, value)                                    \
+  if (DETECT_CUT == (n)) {                                            \
+    if (threadIdx.x == 0 && blockIdx.x == 9999) keep[0] = (value);    \
+    return;                                                           \
+  }
+
+__device__ __forceinline__ float power_of(const float* p, long long i) {
+  return p[i];
+}
+
+__device__ __forceinline__ float power_of(const float2* z, long long i) {
+  const float2 v = z[i];
+  return __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
+}
+
+// The block's sum and max of (a, m), in a fixed order (warp shuffles, then
+// the warps' results in warp order): the same on every run. Thread 0 holds
+// the result.
+__device__ __forceinline__ void block_sum_max(float& a, float& m,
+                                              float* s_sum, float* s_max) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, o);
+    m = fmaxf(m, __shfl_down_sync(0xffffffffu, m, o));
+  }
+  if (lane == 0) {
+    s_sum[warp] = a;
+    s_max[warp] = m;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    a = lane < kWarps ? s_sum[lane] : 0.0f;
+    m = lane < kWarps ? s_max[lane] : -INFINITY;
+    for (int o = 16; o > 0; o >>= 1) {
+      a += __shfl_down_sync(0xffffffffu, a, o);
+      m = fmaxf(m, __shfl_down_sync(0xffffffffu, m, o));
     }
-    __syncthreads();
   }
 }
 
+long long smem_floats(int n_guard, int n_train, int win_rows, int win_cols) {
+  const long long rh = kTileRows + 2LL * win_rows;
+  const long long pw = kTileCols + 2LL * (win_cols + n_guard + n_train);
+  const long long mw = kTileCols + 2LL * win_cols;
+  return 2 * rh * pw + pw + rh + kTileRows * mw;
+}
+
+// (row, column) of the flat index start, start + step, ... of a region
+// `width` wide, kept up to date by adds: no division after the first.
+struct Walk {
+  int r, c, dr, dc, w;
+  __device__ Walk(int start, int step, int width) : w(width) {
+    r = start / w;
+    c = start - r * w;
+    dr = step / w;
+    dc = step - dr * w;
+  }
+  __device__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= w) {
+      c -= w;
+      ++r;
+    }
+  }
+};
+
+template <typename In>
 __global__ void __launch_bounds__(kThreads)
-detect_cells(const float* __restrict__ pwr, const float* __restrict__ scale,
-             const float* __restrict__ cell_ok, float* __restrict__ db,
-             float* __restrict__ hitp, float* __restrict__ part_sum,
-             float* __restrict__ part_max, int nr, int nc, int n_guard,
-             int n_train) {
-  __shared__ float s_sum[kThreads];
-  __shared__ float s_max[kThreads];
-  const int n = nr * nc;
-  const long long map = static_cast<long long>(blockIdx.y) * n;
-  pwr += map;
-  db += map;
-  hitp += map;
-  part_sum += blockIdx.y * gridDim.x;
-  part_max += blockIdx.y * gridDim.x;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
+detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
+            const float* __restrict__ cell_ok, float* __restrict__ db,
+            float* __restrict__ keep, unsigned int* __restrict__ counters,
+            float* __restrict__ part_sum, float* __restrict__ part_max,
+            float* __restrict__ noise, float* __restrict__ rawmax, int nr,
+            int nc, int n_guard, int n_train, int win_rows, int win_cols,
+            float inv_cells) {
+  extern __shared__ float smem[];
+  __shared__ float s_sum[kWarps];
+  __shared__ float s_max[kWarps];
+  __shared__ int s_last;
+  __shared__ int s_row_hit[kTileRows];
+
+  const int hp = n_guard + n_train;
+  const int rh = kTileRows + 2 * win_rows;
+  const int pw = kTileCols + 2 * (win_cols + hp);
+  const int mw = kTileCols + 2 * win_cols;
+  const int n_p = rh * pw;
+  float* s_p = smem;              // rh x pw power, map column 0 held as 0
+  float* s_m = s_p + n_p;         // rh x pw cell_ok, then hit power
+  float* s_scale = s_m + n_p;     // pw
+  float* s_col0 = s_scale + pw;   // rh: the power of map column 0
+  float* s_rm = s_col0 + rh;      // kTileRows x mw
+
+  const int r0 = blockIdx.y * kTileRows;
+  const int c0 = blockIdx.x * kTileCols;
+  const int map = blockIdx.z;
+  const long long base = static_cast<long long>(map) * nr * nc;
+  in += base;
+  db += base;
+  keep += base;
+  // Map row and column of region cell (0, 0).
+  const int gi0 = r0 - win_rows;
+  const int gj0 = c0 - win_cols - hp;
+
+  // 1. Every load of the block first: power and cell_ok over the region
+  //    (0 outside the map), and scale. Each thread issues its loads for
+  //    kUnroll cells before it stores any. Column 0 of the map is stored
+  //    as 0 in s_p and its power kept in s_col0: column 0 is never a
+  //    train cell (the reference's k>0 quirk on the left; no right cell
+  //    reaches it), and cells outside the map are 0, so the train sums
+  //    below need no bounds tests and add the same terms in the same
+  //    order as the reference.
+  {
+    Walk w(threadIdx.x, kThreads, pw);
+    for (int k0 = threadIdx.x; k0 < n_p; k0 += kThreads * kUnroll) {
+      float p[kUnroll], ok[kUnroll];
+      int at[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int gi = gi0 + w.r;
+        const int gj = gj0 + w.c;
+        at[u] = gj == 0 ? w.r : -1;
+        p[u] = 0.0f;
+        ok[u] = 0.0f;
+        if (k0 + u * kThreads < n_p && gi >= 0 && gi < nr && gj >= 0 &&
+            gj < nc) {
+          const long long g = static_cast<long long>(gi) * nc + gj;
+          p[u] = power_of(in, g);
+          ok[u] = cell_ok[g];
+        }
+        w.next();
+      }
+      float sc = 0.0f;
+      const int gj = gj0 + threadIdx.x;
+      if (k0 == threadIdx.x && threadIdx.x < pw && gj >= 0 && gj < nc) {
+        sc = scale[gj];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int k = k0 + u * kThreads;
+        if (k < n_p) {
+          s_p[k] = at[u] >= 0 ? 0.0f : p[u];
+          s_m[k] = ok[u];
+          if (at[u] >= 0) s_col0[at[u]] = p[u];
+        }
+      }
+      if (k0 == threadIdx.x && threadIdx.x < pw) s_scale[threadIdx.x] = sc;
+    }
+    if (threadIdx.x < kTileRows) s_row_hit[threadIdx.x] = 0;
+    // Regions wider than the block (centroid windows of hundreds of
+    // columns) take the rest of scale here.
+    for (int c = kThreads + threadIdx.x; c < pw; c += kThreads) {
+      s_scale[c] = (gj0 + c >= 0 && gj0 + c < nc) ? scale[gj0 + c] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  DETECT_CUT_AFTER(1, smem[5]);
+
+  // 2. Hit power over the tile and the window halo (region columns hp ..
+  //    hp + mw - 1), in place of cell_ok; each thread reads and writes its
+  //    own cells. The train sum in the reference order: for o = g+1..g+t,
+  //    the left cell, then the right cell.
+  {
+    Walk w(threadIdx.x, kThreads, mw);
+    for (int k = threadIdx.x; k < rh * mw; k += kThreads, w.next()) {
+      const int gi = gi0 + w.r;
+      const int gj = c0 - win_cols + w.c;
+      const int at = w.r * pw + hp + w.c;
+      float m = 0.0f;
+      if (gi >= 0 && gi < nr && gj >= 0 && gj < nc) {
+        const float* row = s_p + at;
+        const float p = gj == 0 ? s_col0[w.r] : row[0];
+        float train = 0.0f;
+#pragma unroll 4
+        for (int o = n_guard + 1; o <= hp; ++o) {
+          train += row[-o];
+          train += row[o];
+        }
+        const bool hit =
+            (p > s_scale[hp + w.c] * train) && (s_m[at] > 0.0f);
+        m = hit ? p : 0.0f;
+        // A tile row with a hit needs its window max (phases 3 and 4).
+        const int i = w.r - win_rows;
+        if (hit && i >= 0 && i < kTileRows && w.c >= win_cols &&
+            w.c < win_cols + kTileCols) {
+          s_row_hit[i] = 1;
+        }
+      }
+      s_m[at] = m;
+    }
+  }
+  __syncthreads();
+
+  DETECT_CUT_AFTER(2, smem[5]);
+
+  // 3. Window max along rows, for the tile rows that hold a hit.
+  {
+    Walk w(threadIdx.x, kThreads, mw);
+    for (int k = threadIdx.x; k < kTileRows * mw; k += kThreads, w.next()) {
+      if (!s_row_hit[w.r]) continue;
+      const float* col = s_m + w.r * pw + hp + w.c;
+      float v = 0.0f;
+      for (int d = 0; d <= 2 * win_rows; ++d) v = fmaxf(v, col[d * pw]);
+      s_rm[k] = v;
+    }
+  }
+  __syncthreads();
+
+  DETECT_CUT_AFTER(3, smem[5]);
+
+  // 4. Window max along columns, keep and dB into registers, and the
+  //    block's partials.
+  constexpr int kPer = (kTileRows * kTileCols + kThreads - 1) / kThreads;
+  float d_out[kPer], k_out[kPer];
+  long long at_out[kPer];
   float d_sum = 0.0f;
   float d_max = -INFINITY;
-  if (idx < n) {
-    const int j = idx % nc;
-    const float* row = pwr + (idx - j);
-    const float p = row[j];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int k = threadIdx.x + u * kThreads;
+    const int i = k / kTileCols;
+    const int j = k - i * kTileCols;
+    const int gi = r0 + i;
+    const int gj = c0 + j;
+    at_out[u] = -1;
+    if (k >= kTileRows * kTileCols || gi >= nr || gj >= nc) continue;
+    const int at = (i + win_rows) * pw + j + win_cols + hp;
+    const float p = gj == 0 ? s_col0[i + win_rows] : s_p[at];
+    // A hit has p > scale*train >= 0, so hit <=> m > 0; only a hit needs
+    // its window max.
+    float kept = 0.0f;
+    if (s_m[at] > 0.0f) {
+      const float* rm = s_rm + i * mw + j;
+      float wmax = 0.0f;
+      for (int d = 0; d <= 2 * win_cols; ++d) wmax = fmaxf(wmax, rm[d]);
+      kept = p >= wmax ? 1.0f : 0.0f;
+    }
     const float d = 5.0f * log10f(p);
-    db[idx] = d;
-    d_sum = d;
-    d_max = d;
-    float train = 0.0f;
-    for (int o = n_guard + 1; o <= n_guard + n_train; ++o) {
-      if (j - o >= 1) train += row[j - o];
-      if (j + o < nc) train += row[j + o];
-    }
-    const bool hit = (p > scale[j] * train) && (cell_ok[idx] > 0.0f);
-    hitp[idx] = hit ? p : 0.0f;
+    d_out[u] = d;
+    k_out[u] = kept;
+    at_out[u] = static_cast<long long>(gi) * nc + gj;
+    d_sum += d;
+    d_max = fmaxf(d_max, d);
   }
-  s_sum[threadIdx.x] = d_sum;
-  s_max[threadIdx.x] = d_max;
-  __syncthreads();
-  block_sum_max(s_sum, s_max);
+  block_sum_max(d_sum, d_max, s_sum, s_max);
+
+  DETECT_CUT_AFTER(4, d_sum + d_out[0] + k_out[0]);
+
+  // 5. The partials, and a ticket per map: the block that draws the last
+  //    one reduces the map's partials. The ticket is an acq_rel atomic:
+  //    release publishes this block's partials, acquire lets the last
+  //    block read every other block's. The map's cells are stored after
+  //    the ticket, so that no fence waits for them.
+  const int n_tiles = gridDim.x * gridDim.y;
+  part_sum += static_cast<long long>(map) * n_tiles;
+  part_max += static_cast<long long>(map) * n_tiles;
   if (threadIdx.x == 0) {
-    part_sum[blockIdx.x] = s_sum[0];
-    part_max[blockIdx.x] = s_max[0];
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    part_sum[tile] = d_sum;
+    part_max[tile] = d_max;
+    unsigned int ticket;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(ticket)
+                 : "l"(counters + map)
+                 : "memory");
+    s_last = ticket == static_cast<unsigned int>(n_tiles - 1);
   }
-}
-
-// A hit has p > scale*train >= 0, so hit <=> hitp > 0, and hitp == p there.
-__global__ void __launch_bounds__(kThreads)
-detect_keep(const float* __restrict__ hitp, float* __restrict__ keep, int nr,
-            int nc, int win_rows, int win_cols) {
-  const long long map = static_cast<long long>(blockIdx.y) * nr * nc;
-  hitp += map;
-  keep += map;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= nr * nc) return;
-  const float h = hitp[idx];
-  float k = 0.0f;
-  if (h > 0.0f) {
-    const int i = idx / nc;
-    const int j = idx - i * nc;
-    const int i0 = max(i - win_rows, 0);
-    const int i1 = min(i + win_rows, nr - 1);
-    const int j0 = max(j - win_cols, 0);
-    const int j1 = min(j + win_cols, nc - 1);
-    float wmax = 0.0f;
-    for (int r = i0; r <= i1; ++r) {
-      const float* row = hitp + r * nc;
-      for (int c = j0; c <= j1; ++c) wmax = fmaxf(wmax, row[c]);
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    if (at_out[u] >= 0) {
+      db[at_out[u]] = d_out[u];
+      keep[at_out[u]] = k_out[u];
     }
-    k = (h >= wmax) ? 1.0f : 0.0f;
   }
-  keep[idx] = k;
-}
-
-__global__ void __launch_bounds__(kThreads)
-detect_finish(const float* __restrict__ part_sum,
-              const float* __restrict__ part_max, int n_parts,
-              float inv_cells, float* __restrict__ noise,
-              float* __restrict__ rawmax) {
-  __shared__ float s_sum[kThreads];
-  __shared__ float s_max[kThreads];
-  part_sum += blockIdx.x * n_parts;
-  part_max += blockIdx.x * n_parts;
+  __syncthreads();
+  if (!s_last) return;
   float a = 0.0f;
-  float m = -INFINITY;
-  for (int b = threadIdx.x; b < n_parts; b += kThreads) {
-    a += part_sum[b];
-    m = fmaxf(m, part_max[b]);
+  float mx = -INFINITY;
+  for (int b = threadIdx.x; b < n_tiles; b += kThreads) {
+    a += __ldcg(part_sum + b);
+    mx = fmaxf(mx, __ldcg(part_max + b));
   }
-  s_sum[threadIdx.x] = a;
-  s_max[threadIdx.x] = m;
-  __syncthreads();
-  block_sum_max(s_sum, s_max);
+  block_sum_max(a, mx, s_sum, s_max);
   if (threadIdx.x == 0) {
-    noise[blockIdx.x] = s_sum[0] * inv_cells;
-    rawmax[blockIdx.x] = fmaxf(0.0f, s_max[0]);
+    noise[map] = a * inv_cells;
+    rawmax[map] = fmaxf(0.0f, mx);
+    counters[map] = 0u;
   }
 }
 
-int n_blocks(int nr, int nc) { return (nr * nc + kThreads - 1) / kThreads; }
+int tiles(int n, int tile) { return (n + tile - 1) / tile; }
+
+template <typename In>
+cudaError_t launch(const void* in, const void* scale, const void* cell_ok,
+                   void* db, void* keep, void* scratch, void* noise,
+                   void* rawmax, int batch, int nr, int nc, int n_guard,
+                   int n_train, int win_rows, int win_cols, int smem,
+                   cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        detect_tile<In>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(tiles(nc, kTileCols), tiles(nr, kTileRows), batch);
+  const int n_tiles = grid.x * grid.y;
+  unsigned int* counters = static_cast<unsigned int*>(scratch);
+  float* part_sum = reinterpret_cast<float*>(counters + batch);
+  float* part_max = part_sum + static_cast<long long>(batch) * n_tiles;
+  const float inv_cells = static_cast<float>(1.0 / (double(nr) * nc));
+  detect_tile<In><<<grid, kThreads, smem, stream>>>(
+      static_cast<const In*>(in), static_cast<const float*>(scale),
+      static_cast<const float*>(cell_ok), static_cast<float*>(db),
+      static_cast<float*>(keep), counters, part_sum, part_max,
+      static_cast<float*>(noise), static_cast<float*>(rawmax), nr, nc,
+      n_guard, n_train, win_rows, win_cols, inv_cells);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
-// Floats of scratch the launcher needs for a stack of ``batch`` maps: the
-// hit-power maps, then the per-block partial sums and maxima of each map.
-extern "C" long long detect_scratch_floats(int batch, int nr, int nc) {
-  return static_cast<long long>(batch) * (nr * nc + 2 * n_blocks(nr, nc));
+extern "C" int detect_tile_rows() { return kTileRows; }
+extern "C" int detect_tile_cols() { return kTileCols; }
+extern "C" int detect_static_smem() { return kStaticSmem; }
+
+// 32-bit words of scratch for a stack of ``batch`` maps: one ticket counter
+// per map (zero before the first launch; the kernel leaves it zero), then
+// the per-block partial sums and maxima of each map.
+extern "C" long long detect_scratch_words(int batch, int nr, int nc) {
+  const long long n_tiles =
+      static_cast<long long>(tiles(nc, kTileCols)) * tiles(nr, kTileRows);
+  return static_cast<long long>(batch) * (1 + 2 * n_tiles);
 }
 
-extern "C" int detect_launch(const void* pwr, const void* scale,
-                             const void* cell_ok, void* db, void* keep,
-                             void* scratch, void* noise, void* rawmax,
-                             int batch, int nr, int nc, int n_guard,
-                             int n_train, int win_rows, int win_cols,
+// ``in`` is a float32 power map (complex_input 0) or a complex64 map
+// (complex_input 1); ``smem`` the dynamic shared memory in bytes, at least
+// what the window extents need.
+extern "C" int detect_launch(const void* in, int complex_input,
+                             const void* scale, const void* cell_ok, void* db,
+                             void* keep, void* scratch, void* noise,
+                             void* rawmax, int batch, int nr, int nc,
+                             int n_guard, int n_train, int win_rows,
+                             int win_cols, int smem, int device,
                              void* stream) {
-  if (batch < 1 || batch > 65535) {
+  if (batch < 1 || batch > 65535 || nr < 1 || nc < 1 || n_guard < 0 ||
+      n_train < 0 || win_rows < 0 || win_cols < 0 ||
+      static_cast<long long>(smem) <
+          4 * smem_floats(n_guard, n_train, win_rows, win_cols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = n_blocks(nr, nc);
-  const dim3 grid(blocks, batch);
+  int current = -1;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* hitp = static_cast<float*>(scratch);
-  float* part_sum = hitp + static_cast<long long>(batch) * nr * nc;
-  float* part_max = part_sum + static_cast<long long>(batch) * blocks;
-
-  detect_cells<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(pwr), static_cast<const float*>(scale),
-      static_cast<const float*>(cell_ok), static_cast<float*>(db), hitp,
-      part_sum, part_max, nr, nc, n_guard, n_train);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  detect_keep<<<grid, kThreads, 0, s>>>(hitp, static_cast<float*>(keep), nr,
-                                        nc, win_rows, win_cols);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const float inv_cells = static_cast<float>(1.0 / (double(nr) * nc));
-  detect_finish<<<batch, kThreads, 0, s>>>(part_sum, part_max, blocks,
-                                           inv_cells,
-                                           static_cast<float*>(noise),
-                                           static_cast<float*>(rawmax));
-  return static_cast<int>(cudaGetLastError());
+  e = complex_input
+          ? launch<float2>(in, scale, cell_ok, db, keep, scratch, noise,
+                           rawmax, batch, nr, nc, n_guard, n_train, win_rows,
+                           win_cols, smem, s)
+          : launch<float>(in, scale, cell_ok, db, keep, scratch, noise,
+                          rawmax, batch, nr, nc, n_guard, n_train, win_rows,
+                          win_cols, smem, s);
+  if (current != device) cudaSetDevice(current);
+  return static_cast<int>(e);
 }

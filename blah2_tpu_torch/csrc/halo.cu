@@ -4,25 +4,44 @@
 // Replaces the TPU kernel blah2_tpu/parallel/halo.py::_rdma_permute
 // (Pallas: a neighbour barrier on semaphores, then a remote DMA of a small
 // f32 buffer to ring neighbour d-1 or d+1). What it computes: every rank of
-// a ring sends its payload into the receive buffer of its neighbour; the
-// send is circular and the caller masks the wrap-around edge.
+// a ring sends its payload into the receive buffer of its neighbour,
+// circularly; with the edge mask, the receive buffer of the ring's edge
+// rank is zero-filled instead (the wrap-around that the JAX caller masks).
 //
 // Design. One process drives every rank (the mesh is single-controller, as
 // shard_map is), so one call covers every rank: per device one launch whose
-// blocks are that device's ranks, one block each. All of a device's ranks
-// are then co-resident in one launch, so the spin-waits below cannot
-// deadlock on one card. Block b, for rank r sending to rank q:
+// grid's y index b is one of that device's ranks, the blocks of row b
+// sending for rank r to the rank q that receives from r.
+//
+// Payload layout. A payload is `rows` runs of `words` 32-bit words, run k
+// starting at word k * `stride` of the rank's source pointer: a (B, n)
+// block sliced [..., :count] or [..., -count:] is read where it lies, with
+// no copy first. complex64 and complex128 pass as their interleaved real
+// and imaginary words, float32 and float64 as theirs, so the copy is
+// bit-exact whatever the type. Receive buffers are contiguous: the wrapper
+// allocates one (ranks on the card, *shape) tensor per card and call.
+//
+// One card (`sys_scope` == 0): a plain strided copy, no flags, over a grid
+// of (chunks, ranks) blocks, kChunk words a block. Every rank
+// of the call lies on one device and the launch is on that device's one
+// stream, so (1) the launch starts only after every earlier kernel on the
+// stream has finished, which is all the arrive barrier below guarantees
+// (no earlier kernel still reads a receive buffer), and (2) the stream's
+// next kernel starts only after the launch ends, which is all the ready
+// wait guarantees (every receive buffer is written).
+//
+// Across cards (`sys_scope` != 0), where a peer's stream is not ordered
+// with ours, the flag protocol of the TPU kernel's barrier, one block per
+// rank (a grid of (1, ranks)). Block b:
 //
 //   1. arrive: thread 0 stores arrive[r] = epoch (release), then waits until
 //      arrive[q] >= epoch (acquire). Rank q's block runs only after every
 //      earlier kernel on q's stream, so once q has arrived nothing earlier
-//      still reads q's receive buffer: this is the neighbour barrier of the
-//      TPU kernel, and it matters where q lives on another card, whose
-//      stream the writer does not share.
-//   2. copy: the block pushes the payload into q's receive buffer through
-//      the pointer table (same card, or a peer card by unified addressing).
-//   3. signal: __syncthreads, a fence, then thread 0 stores ready[q] = epoch
-//      (release).
+//      still reads q's receive buffer.
+//   2. copy: the block writes the payload (or zeros) into q's receive
+//      buffer on q's card, through unified addressing.
+//   3. signal: __syncthreads, a system fence, then thread 0 stores
+//      ready[q] = epoch (release).
 //   4. wait: thread 0 waits until ready[r] >= epoch (acquire): the rank's
 //      own buffer has arrived before the launch ends, so the stream's next
 //      kernels may read it.
@@ -31,9 +50,8 @@
 // word per (collective_id, rank), on the rank's own card: call sites with
 // no data dependency on each other get their own slot (the collective_id
 // rule of the TPU kernel). The wrapper passes an epoch that grows by one
-// per call and collective_id, so no flag is ever reset between calls. The
-// stores are st.release and the loads ld.acquire, at .gpu scope on one card
-// and .sys scope where a peer card takes part.
+// per call and collective_id, so no flag is ever reset. Stores are
+// st.release.sys and loads ld.acquire.sys.
 //
 // No hang: a wait that runs past kSpinLimit clock cycles (about half a
 // second) writes a nonzero error word (1 for the barrier, 2 for the data)
@@ -42,25 +60,29 @@
 // for ever on a rank whose launch has not been issued. The wrapper reads
 // the word where the caller synchronises anyway.
 //
-// Bound: a call moves a few KB (a (409, 2) f32 halo is 3,272 B a rank), a
-// few ns at 3.35 TB/s. What it costs is one launch plus two flag round
-// trips (arrive, ready), a few us, not bytes. Payloads are moved as 32-bit
-// words, so float32 and float64 planes both pass.
+// Bound: a call moves a few KB (a (409,) complex64 halo is 3,272 B a rank),
+// a few ns at 3.35 TB/s. On one card what it costs is one short launch and
+// one memory latency: each thread issues its kUnroll loads before it
+// stores any, so a thread does not wait on one load after another. The
+// flag round trips are paid only across cards.
 //
-// Interface: plain C, bound from Python with ctypes. The launcher enqueues
-// on the caller's stream, does not synchronise, and returns
-// cudaGetLastError() (0 on success).
+// Interface: plain C, bound from Python with ctypes. The launcher makes
+// `device` current where it is not, enqueues on the given stream, does not
+// synchronise, and returns cudaGetLastError() (0 on success).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;
+constexpr int kChunk = kThreads * kUnroll;
 constexpr int kMaxRanks = 32;
 constexpr long long kSpinLimit = 1000000000LL;
 
-// Per block: source payload, neighbour's receive buffer, and the four flag
-// words (own arrive, neighbour's arrive, neighbour's ready, own ready).
+// Per block: source payload, neighbour's receive buffer, and (across cards)
+// the four flag words (own arrive, neighbour's arrive, neighbour's ready,
+// own ready). Bit b of zero_mask: block b writes zeros.
 struct HaloArgs {
   const unsigned int* src[kMaxRanks];
   unsigned int* dst[kMaxRanks];
@@ -68,74 +90,85 @@ struct HaloArgs {
   unsigned long long* dst_arrive[kMaxRanks];
   unsigned long long* dst_ready[kMaxRanks];
   unsigned long long* my_ready[kMaxRanks];
+  unsigned int zero_mask;
 };
 
-__device__ __forceinline__ void store_release(unsigned long long* p,
-                                              unsigned long long v, bool sys) {
-  if (sys) {
-    asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-                 : "memory");
-  } else {
-    asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-                 : "memory");
-  }
+__device__ __forceinline__ void store_release_sys(unsigned long long* p,
+                                                  unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
 }
 
-__device__ __forceinline__ unsigned long long load_acquire(
-    const unsigned long long* p, bool sys) {
+__device__ __forceinline__ unsigned long long load_acquire_sys(
+    const unsigned long long* p) {
   unsigned long long v;
-  if (sys) {
-    asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
-                 : "=l"(v)
-                 : "l"(p)
-                 : "memory");
-  } else {
-    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-                 : "=l"(v)
-                 : "l"(p)
-                 : "memory");
-  }
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
   return v;
 }
 
 // Spin until *p >= epoch; false if the wait ran past kSpinLimit cycles.
-__device__ bool wait_for(const unsigned long long* p, unsigned long long epoch,
-                         bool sys) {
+__device__ bool wait_for(const unsigned long long* p,
+                         unsigned long long epoch) {
   const long long t0 = clock64();
-  while (load_acquire(p, sys) < epoch) {
+  while (load_acquire_sys(p) < epoch) {
     if (clock64() - t0 > kSpinLimit) return false;
     __nanosleep(64);
   }
   return true;
 }
 
+// Chunks blockIdx.x, blockIdx.x + gridDim.x, ... of the payload.
+__device__ __forceinline__ void copy_payload(const unsigned int* src,
+                                             unsigned int* dst, bool zero,
+                                             int rows, int words,
+                                             long long stride) {
+  const int n = rows * words;
+  for (int i0 = blockIdx.x * kChunk + threadIdx.x; i0 < n;
+       i0 += gridDim.x * kChunk) {
+    unsigned int v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * kThreads;
+      const int k = i / words;
+      v[u] = (!zero && i < n) ? src[k * stride + (i - k * words)] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < n) dst[i] = v[u];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-halo_permute(const HaloArgs args, int n_words, unsigned long long epoch,
-             int sys_scope, unsigned int* err) {
+halo_permute(const HaloArgs args, int rows, int words, long long stride,
+             unsigned long long epoch, int sys_scope, unsigned int* err) {
+  const int b = blockIdx.y;
+  const bool zero = (args.zero_mask >> b) & 1u;
+  if (sys_scope == 0) {
+    copy_payload(args.src[b], args.dst[b], zero, rows, words, stride);
+    return;
+  }
+
   __shared__ int s_ok;
-  const int b = blockIdx.x;
-  const bool sys = sys_scope != 0;
   if (threadIdx.x == 0) {
-    store_release(args.my_arrive[b], epoch, sys);
-    s_ok = wait_for(args.dst_arrive[b], epoch, sys);
+    store_release_sys(args.my_arrive[b], epoch);
+    s_ok = wait_for(args.dst_arrive[b], epoch);
     if (!s_ok) atomicOr(err, 1u);
   }
   __syncthreads();
   if (!s_ok) return;
 
-  const unsigned int* src = args.src[b];
-  unsigned int* dst = args.dst[b];
-  for (int i = threadIdx.x; i < n_words; i += kThreads) dst[i] = src[i];
+  copy_payload(args.src[b], args.dst[b], zero, rows, words, stride);
   __syncthreads();
 
   if (threadIdx.x == 0) {
-    if (sys) {
-      __threadfence_system();
-    } else {
-      __threadfence();
-    }
-    store_release(args.dst_ready[b], epoch, sys);
-    if (!wait_for(args.my_ready[b], epoch, sys)) atomicOr(err, 2u);
+    __threadfence_system();
+    store_release_sys(args.dst_ready[b], epoch);
+    if (!wait_for(args.my_ready[b], epoch)) atomicOr(err, 2u);
   }
 }
 
@@ -143,29 +176,52 @@ halo_permute(const HaloArgs args, int n_words, unsigned long long epoch,
 
 extern "C" int halo_max_ranks() { return kMaxRanks; }
 
-// ptrs holds 6 * n_blocks addresses, in this order, each a run of n_blocks:
-// source payloads, neighbours' receive buffers, own arrive flags,
-// neighbours' arrive flags, neighbours' ready flags, own ready flags.
-extern "C" int halo_launch(int n_blocks, void* const* ptrs, int n_words,
+// ptrs holds 2 * n_blocks addresses on one card (sources, then neighbours'
+// receive buffers) or 6 * n_blocks across cards (then own arrive flags,
+// neighbours' arrive flags, neighbours' ready flags, own ready flags), each
+// a run of n_blocks.
+extern "C" int halo_launch(int n_blocks, void* const* ptrs, int rows,
+                           int words, long long stride, unsigned int zero_mask,
                            long long epoch, int sys_scope, void* err,
-                           void* stream) {
-  if (n_blocks < 1 || n_blocks > kMaxRanks || n_words < 0) {
+                           int device, void* stream) {
+  if (n_blocks < 1 || n_blocks > kMaxRanks || rows < 0 || words < 0 ||
+      stride < words) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int current = -1;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   HaloArgs args;
   for (int b = 0; b < n_blocks; ++b) {
     args.src[b] = static_cast<const unsigned int*>(ptrs[b]);
     args.dst[b] = static_cast<unsigned int*>(ptrs[n_blocks + b]);
-    args.my_arrive[b] = static_cast<unsigned long long*>(ptrs[2 * n_blocks + b]);
-    args.dst_arrive[b] =
-        static_cast<unsigned long long*>(ptrs[3 * n_blocks + b]);
-    args.dst_ready[b] = static_cast<unsigned long long*>(ptrs[4 * n_blocks + b]);
-    args.my_ready[b] = static_cast<unsigned long long*>(ptrs[5 * n_blocks + b]);
+    if (sys_scope != 0) {
+      args.my_arrive[b] =
+          static_cast<unsigned long long*>(ptrs[2 * n_blocks + b]);
+      args.dst_arrive[b] =
+          static_cast<unsigned long long*>(ptrs[3 * n_blocks + b]);
+      args.dst_ready[b] =
+          static_cast<unsigned long long*>(ptrs[4 * n_blocks + b]);
+      args.my_ready[b] =
+          static_cast<unsigned long long*>(ptrs[5 * n_blocks + b]);
+    } else {
+      args.my_arrive[b] = args.dst_arrive[b] = nullptr;
+      args.dst_ready[b] = args.my_ready[b] = nullptr;
+    }
   }
-  halo_permute<<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      args, n_words, static_cast<unsigned long long>(epoch), sys_scope,
-      static_cast<unsigned int*>(err));
-  return static_cast<int>(cudaGetLastError());
+  args.zero_mask = zero_mask;
+  const long long n = static_cast<long long>(rows) * words;
+  const int chunks = sys_scope != 0 || n <= kChunk
+                         ? 1
+                         : static_cast<int>((n + kChunk - 1) / kChunk);
+  const dim3 grid(chunks, n_blocks);
+  halo_permute<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      args, rows, words, stride, static_cast<unsigned long long>(epoch),
+      sys_scope, static_cast<unsigned int*>(err));
+  e = cudaGetLastError();
+  if (current != device) cudaSetDevice(current);
+  return static_cast<int>(e);
 }
 
 // Let the current card write into ``peer``'s memory (a mesh over several

@@ -37,6 +37,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def current_stream_handle(index: int) -> int:
+    """The ``cudaStream_t`` of the current stream on card ``index``, as an
+    int: what ``torch.cuda.current_stream(index).cuda_stream`` gives,
+    without building the ``Stream`` object (``tools/torch_halo_host.py``
+    times both), for kernel wrappers that launch on every call."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def real_dtype(dtype: torch.dtype) -> torch.dtype:
     """Real component dtype of a complex working dtype."""
     try:

@@ -8,10 +8,10 @@ names so that a ``--halo-backend`` option passes through unchanged:
     zeros where a rank has no source: the linear (zero-extended) boundary
     the overlap-save decomposition needs.
   - ``"pallas"``: the hand-written CUDA kernel ``csrc/halo.cu`` on a card
-    (``ops/halo.py``), and its plain twin on the CPU. The permute is
-    circular; the wrap-around edge is masked to zero here, as the JAX code
-    does. Data crosses as real/imaginary planes, and complex is re-formed on
-    the receiving rank.
+    (``ops/halo.py``), and its plain twin on the CPU, with the edge mask:
+    the kernel zero-fills the wrap-around edge that the JAX code masks, and
+    reads each rank's slice where it lies, complex as it is. On one card
+    a shift is one launch.
 
 A sharded value is a list with one tensor per rank of the mesh; the halo is
 taken along the last dimension, so a leading CPI batch rides along.
@@ -31,20 +31,6 @@ from blah2_tpu_torch.parallel.mesh import RadarMesh
 BACKENDS = ("ppermute", "pallas")
 
 
-def _as_planes(v: torch.Tensor):
-    """Complex → contiguous (..., 2) real planes and the complex dtype;
-    real tensors pass as they are (made contiguous)."""
-    if v.is_complex():
-        return torch.stack([v.real, v.imag], dim=-1), v.dtype
-    return v.contiguous(), None
-
-
-def _from_planes(p: torch.Tensor, cdtype):
-    if cdtype is None:
-        return p
-    return torch.complex(p[..., 0], p[..., 1]).to(cdtype)
-
-
 def _shift(parts: List[torch.Tensor], mesh: RadarMesh, axis: str,
            backend: str, collective_id: int, from_next: bool):
     if backend == "ppermute":
@@ -53,16 +39,8 @@ def _shift(parts: List[torch.Tensor], mesh: RadarMesh, axis: str,
     if backend != "pallas":
         raise ValueError(f"unknown halo backend {backend!r}")
     record(mesh, "permute", axis, parts[0].shape, parts[0].dtype)
-    planes = [_as_planes(p) for p in parts]
-    got = halo_permute([p for p, _ in planes], mesh, axis, to_left=from_next,
-                       collective_id=collective_id)
-    edge = mesh.shape[axis] - 1 if from_next else 0
-    out = []
-    for r, (g, (_, cdtype)) in enumerate(zip(got, planes)):
-        v = _from_planes(g, cdtype)
-        out.append(torch.zeros_like(v) if mesh.axis_index(r, axis) == edge
-                   else v)
-    return out
+    return halo_permute(parts, mesh, axis, to_left=from_next,
+                        collective_id=collective_id, mask_edge=True)
 
 
 def shift_from_next(vs: List[torch.Tensor], count: int, mesh: RadarMesh,

@@ -68,14 +68,44 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def device_profile(fn, n):
+    """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler):
+    {kernel name: (total us, launches)}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            tot, cnt = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (tot + ev.time_range.elapsed_us(), cnt + 1)
+    return by_name
+
+
+def top(by_name, n, k):
+    """The ``k`` costliest kernels per call: [name, us, launches]."""
+    return [[name[:80], round(t / n, 2), c // n] for name, (t, c) in sorted(
+        by_name.items(), key=lambda kv: -kv[1][0])[:k]]
+
+
 def power_map(z):
-    """|z|^2 as the fused detector forms it."""
+    """|z|^2 in torch ops, as the fused detector formed it before its
+    kernel took the complex64 map."""
     return z.real * z.real + z.imag * z.imag
 
 
 def phase_kernel_vs_plain(dev):
-    """The kernel against detect_plain on the card at 301 x 411: random
-    maps with targets, the tie case, and more hits than capacity."""
+    """The kernel against detect_plain on the card, on the complex64 map
+    and on its float32 power: random 301 x 411 maps with targets, the tie
+    case, more hits than capacity, a ragged 37 x 53 map, centroid windows
+    wider than a tile, and a stack of two; one launch a call."""
     import numpy as np
     import torch
 
@@ -103,24 +133,47 @@ def phase_kernel_vs_plain(dev):
         targets[r, c] += a
     tie = np.full((nr, nc), 0.05 + 0j, dtype=np.complex64)
     tie[200, 200] = tie[200, 205] = 50.0
+    ragged = (rng.standard_normal((37, 53))
+              + 1j * rng.standard_normal((37, 53))).astype(np.complex64)
+    ragged[0, 52] += 30.0
+    ragged[36, 3] += 30.0
+    wide_z = noise_map()[:64, :200].copy()
+    wide_z[30, 100] += 40.0
+    wide_z[33, 150] += 45.0
+    small = FusedDetector(1e-2, 1, 3, 0, 0.0, 6, 6, 2.0,
+                          np.arange(-10, 43), 2.0 * np.arange(-18, 19),
+                          device=dev)
+    # Centroid windows of 41 x 147 cells: wider than a 24 x 48 tile.
+    wide = FusedDetector(1e-2, 1, 3, 0, 0.0, 74, 21, 2.0,
+                         np.arange(-10, 190), 2.0 * np.arange(-32, 32),
+                         device=dev)
+    check((wide.win_rows, wide.win_cols) == (20, 73), "wide windows")
     cases = [("targets", targets, default), ("tie", tie, loose),
-             ("overflow", noise_map(), loose)]
+             ("overflow", noise_map(), loose), ("ragged", ragged, small),
+             ("wide", wide_z, wide)]
     err = 0.0
     for name, z, fd in cases:
-        pwr = power_map(torch.from_numpy(z).to(dev)).contiguous()
+        zc = torch.from_numpy(z).to(dev)
         args = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
                 fd.win_cols)
-        got = detect(pwr, *args)
-        want = detect_plain(pwr, *args)
-        torch.cuda.synchronize()
-        check(torch.equal(got.keep, want.keep), f"{name}: keep differs")
-        e = max(float((got.db - want.db).abs().max()),
-                abs(float(got.noise - want.noise)),
-                abs(float(got.rawmax - want.rawmax)))
-        check(e <= 1e-4, f"{name}: db/noise/rawmax differ by {e} dB")
-        err = max(err, e)
+        for kind, m in (("complex64", zc), ("float32",
+                                            power_map(zc).contiguous())):
+            launches = detect.launches
+            got = detect(m, *args)
+            want = detect_plain(m, *args)
+            torch.cuda.synchronize()
+            check(detect.launches == launches + 1,
+                  f"{name} {kind}: {detect.launches - launches} launches")
+            check(torch.equal(got.keep, want.keep),
+                  f"{name} {kind}: keep differs")
+            e = max(float((got.db - want.db).abs().max()),
+                    abs(float(got.noise - want.noise)),
+                    abs(float(got.rawmax - want.rawmax)))
+            check(e <= 1e-4, f"{name} {kind}: db/noise/rawmax differ by {e} "
+                  f"dB")
+            err = max(err, e)
         n_keep = int(got.keep.sum())
-        _, _, _, det = fd(torch.from_numpy(z).to(dev))
+        _, _, _, det = fd(zc)
         count = int(det.count)
         check(count == n_keep, f"{name}: count {count} != kept {n_keep}")
         print(f"kernel_vs_plain {name}: kept={n_keep} max_abs_err_db={e:.3g}")
@@ -134,23 +187,24 @@ def phase_kernel_vs_plain(dev):
 
     # A (2, nr, nc) stack in one call: the tie map and an overflowing map.
     zs = torch.from_numpy(np.stack([tie, noise_map()])).to(dev)
-    pwr = power_map(zs).contiguous()
     args = (loose._scale, loose._cell_ok, loose.n_guard, loose.n_train,
             loose.win_rows, loose.win_cols)
-    got = detect(pwr, *args)
-    want = detect_plain(pwr, *args)
-    torch.cuda.synchronize()
-    check(torch.equal(got.keep, want.keep), "stack: keep differs")
-    e = max(float((got.db - want.db).abs().max()),
-            float((got.noise - want.noise).abs().max()),
-            float((got.rawmax - want.rawmax).abs().max()))
-    check(e <= 1e-4, f"stack: db/noise/rawmax differ by {e} dB")
-    err = max(err, e)
-    for i in range(2):
-        one = detect(pwr[i].contiguous(), *args)
-        check(torch.equal(one.keep, got.keep[i])
-              and torch.equal(one.noise, got.noise[i]),
-              f"stack: map {i} differs from its own call")
+    for kind, m in (("complex64", zs),
+                    ("float32", power_map(zs).contiguous())):
+        got = detect(m, *args)
+        want = detect_plain(m, *args)
+        torch.cuda.synchronize()
+        check(torch.equal(got.keep, want.keep), f"stack {kind}: keep differs")
+        e = max(float((got.db - want.db).abs().max()),
+                float((got.noise - want.noise).abs().max()),
+                float((got.rawmax - want.rawmax).abs().max()))
+        check(e <= 1e-4, f"stack {kind}: db/noise/rawmax differ by {e} dB")
+        err = max(err, e)
+        for i in range(2):
+            one = detect(m[i].contiguous(), *args)
+            check(torch.equal(one.keep, got.keep[i])
+                  and torch.equal(one.noise, got.noise[i]),
+                  f"stack {kind}: map {i} differs from its own call")
     _, _, _, det = loose(zs)
     cols = sorted(det.col[0][det.valid[0]].tolist())
     check(cols == [200, 205], f"stack: tie kept columns {cols}")
@@ -366,8 +420,11 @@ def phase_default(dev, root):
 
 
 def phase_timing(pipe, packed, card):
-    """Median ms per CPI (packed-12 bytes on the device to detections) and
-    the detect kernel against detect_plain, with CUDA events."""
+    """Median ms per CPI (packed-12 bytes on the device to detections), and
+    the detect kernel on the main path's complex64 map against the old form
+    (|z|^2 in torch, then the kernel on float32 power) and detect_plain,
+    with CUDA events in the order A B B A, and from the profiler the device
+    time and launches of a call of each form."""
     import torch
 
     from blah2_tpu_torch.ops.detect import detect, detect_plain
@@ -390,29 +447,57 @@ def phase_timing(pipe, packed, card):
 
     # The detect kernel at the main path's shapes, on this run's map.
     z, _ = pipe.cross_map(*pipe.decode_quad12(packed))
-    pwr = power_map(z).contiguous()
+    z = z.contiguous()
+    check(z.dtype == torch.complex64, f"main path map is {z.dtype}")
     fd = pipe.fused_detector
     args = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
             fd.win_cols)
-    plain_a = cuda_ms(lambda: detect_plain(pwr, *args), 100)
-    kern_a = cuda_ms(lambda: detect(pwr, *args), 200)
-    kern_b = cuda_ms(lambda: detect(pwr, *args), 200)
-    plain_b = cuda_ms(lambda: detect_plain(pwr, *args), 100)
-    nr, nc = pwr.shape
-    bytes_moved = 4 * (4 * nr * nc + nc) + 8
-    # Per cell: log10, the x5, 2*n_train adds, the scale product, two
-    # compares, the separable window max and its compare, two reductions.
-    ops = nr * nc * (1 + 1 + 2 * fd.n_train + 1 + 2
+
+    def new():
+        detect(z, *args)
+
+    def old():
+        detect(power_map(z).contiguous(), *args)
+
+    plain_a = cuda_ms(lambda: detect_plain(z, *args), 100)
+    kern_a = cuda_ms(new, 200)
+    old_a = cuda_ms(old, 200)
+    old_b = cuda_ms(old, 200)
+    kern_b = cuda_ms(new, 200)
+    plain_b = cuda_ms(lambda: detect_plain(z, *args), 100)
+    n = 20
+    prof_new, prof_old = device_profile(new, n), device_profile(old, n)
+    power_us = sum(t for k, (t, _) in prof_old.items() if "detect_" not in k)
+    nr, nc = z.shape
+    # Each input read once, each output written once: the map (8 B a cell
+    # as complex64, 4 B as float32 power), cell_ok, db and keep; scale,
+    # noise and rawmax.
+    extra = 4 * nc + 8
+    bytes_c64 = (8 + 4 + 4 + 4) * nr * nc + extra
+    bytes_f32 = (4 + 4 + 4 + 4) * nr * nc + extra
+    # Per cell: |z|^2 (3), log10, the x5, 2*n_train adds, the scale
+    # product, two compares, the separable window max and its compare, two
+    # reductions.
+    ops = nr * nc * (3 + 1 + 1 + 2 * fd.n_train + 1 + 2
                      + 2 * (fd.win_rows + fd.win_cols) + 1 + 2)
-    bound_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_b = bytes_c64 / HBM_BYTES_PER_S * 1e3
     bound_o = ops / F32_OPS_PER_S * 1e3
     timing = {
         "cpi_ms_median": statistics.median(times),
         "cpi_ms_min": min(times), "cpi_ms_max": max(times),
         "cpis": len(times), "peak_mib": peak,
         "detect_ms": [kern_a, kern_b], "detect_plain_ms": [plain_a, plain_b],
+        "detect_old_form_ms": [old_a, old_b],
+        "detect_device_ms": sum(t for t, _ in prof_new.values()) / n / 1e3,
+        "detect_launches_per_call": sum(c for _, c in prof_new.values()) / n,
+        "old_form_device_ms": sum(t for t, _ in prof_old.values()) / n / 1e3,
+        "old_form_launches_per_call":
+            sum(c for _, c in prof_old.values()) / n,
+        "power_kernels_device_ms": power_us / n / 1e3,
+        "old_form_top": top(prof_old, n, 6),
         "bound_ms": max(bound_b, bound_o),
         "bound_by": "bytes" if bound_b >= bound_o else "operations",
+        "bound_f32_input_ms": bytes_f32 / HBM_BYTES_PER_S * 1e3,
         "card": card,
         "count": int(out.detections.count),
     }
@@ -425,8 +510,6 @@ def phase_profile(pipe, packed, cpi_ms):
     per CPI, the idle share against the timed median, and the detect
     kernels' own device time per call."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from blah2_tpu_torch.ops.detect import detect
 
@@ -435,25 +518,15 @@ def phase_profile(pipe, packed, cpi_ms):
         pipe.call_quad12(packed)
     torch.cuda.synchronize()
     calls = detect.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            pipe.call_quad12(packed)
-        torch.cuda.synchronize()
+    by_name = device_profile(lambda: pipe.call_quad12(packed), n)
     calls = detect.launches - calls
-    by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            t = ev.time_range.elapsed_us()
-            tot, cnt = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (tot + t, cnt + 1)
     busy_ms = sum(t for t, _ in by_name.values()) / n / 1e3
     detect_us = sum(t for k, (t, _) in by_name.items() if "detect_" in k) / n
     # Kernel launches a detect call makes: the kernels named detect_* the
     # profiler saw, over the wrapper's calls in the window.
     per_call = sum(c for k, (_, c) in by_name.items() if "detect_" in k) \
         / max(calls, 1)
-    check(calls == n and per_call == 3,
+    check(calls == n and per_call == 1,
           f"{calls} detect calls in {n} CPIs, {per_call} launches a call")
     prof_out = {
         "device_busy_ms_per_cpi": busy_ms,
@@ -461,8 +534,7 @@ def phase_profile(pipe, packed, cpi_ms):
         "kernels_per_cpi": sum(c for _, c in by_name.values()) / n,
         "detect_device_ms": detect_us / 1e3 if detect_us else None,
         "detect_launches_per_call": per_call,
-        "top": [[k[:80], round(t / n, 2), c // n] for k, (t, c) in sorted(
-            by_name.items(), key=lambda kv: -kv[1][0])[:15]],
+        "top": top(by_name, n, 15),
     }
     print("profile " + json.dumps(prof_out))
     return prof_out
@@ -478,11 +550,21 @@ def one_card_mesh(dev, shape):
     return make_radar_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
 
 
+def bits(t):
+    """A tensor's values as real words, for a bit-exact comparison."""
+    import torch
+
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
 def phase_halo_vs_plain(dev):
     """The halo kernel against halo_permute_plain on meshes of logical
-    ranks on the one card, both directions, the main path's payloads, for
-    equality; then 1,000 back-to-back calls with a new payload each, every
-    call checked on the device, and the kernel's error word."""
+    ranks on the one card, both directions, for equality: the circular
+    form on the main path's payloads, and the masked form on slices as they
+    lie (heads and tails of (B, n) blocks; float32, complex64, complex128;
+    the ring's edge zero-filled), one launch a call; then 1,000
+    back-to-back calls with a new payload each, every call checked on the
+    device, and the kernel's error word."""
     import torch
 
     from blah2_tpu_torch.ops.halo import halo_permute, halo_permute_plain
@@ -504,6 +586,36 @@ def phase_halo_vs_plain(dev):
                 for g, w in zip(got, want):
                     err = torch.maximum(err, (g - w).abs().max())
                 cases += 1
+            for dtype in (torch.float32, torch.complex64, torch.complex128):
+                for batch, count in ((1, 409), (2, 409), (2, 10)):
+                    blocks = [torch.randn((batch, 1000), dtype=dtype,
+                                          device=dev)
+                              for _ in range(mesh.size)]
+                    parts = [b[..., :count] if to_left else b[..., -count:]
+                             for b in blocks]
+                    launches = halo_permute.launches
+                    got = halo_permute(parts, mesh, to_left=to_left,
+                                       collective_id=3, mask_edge=True)
+                    want = halo_permute_plain(parts, mesh, to_left=to_left,
+                                              mask_edge=True)
+                    torch.cuda.synchronize()
+                    what = (f"masked halo {shape} to_left={to_left} {dtype} "
+                            f"({batch}, {count})")
+                    check(halo_permute.launches == launches + 1,
+                          f"{what}: {halo_permute.launches - launches} "
+                          f"launches")
+                    check(all(g.dtype == dtype and torch.equal(bits(g),
+                                                               bits(w))
+                              for g, w in zip(got, want)), f"{what} differs")
+                    edge = shape[1] - 1 if to_left else 0
+                    check(all(not bool(bits(g).any())
+                              for r, g in enumerate(got)
+                              if mesh.axis_index(r, "pulse") == edge),
+                          f"{what}: edge not zero")
+                    for g, w in zip(got, want):
+                        err = torch.maximum(err, (bits(g) - bits(w)).abs()
+                                            .max().float())
+                    cases += 1
     mesh = one_card_mesh(dev, (1, 4))
     bad = torch.zeros((), dtype=torch.int64, device=dev)
     n_calls = 1000
@@ -643,16 +755,18 @@ def phase_sharded_timing(dev, root, card):
     """The sharded CPI on a 1 x 4 mesh on the card (complex64, halo kernel,
     fused detector): ms per step by CUDA events from planes on the device
     to detections, peak memory, and from the profiler the device busy time,
-    the kernels per CPI and the halo kernel's device time per launch; then
-    the halo kernel at the (409, 2) payload against its plain twin and one
-    Tensor.copy_ per rank."""
+    the kernels per CPI and the halo kernel's device time and launches per
+    shift; then the main path's largest shift (409 complex64 samples from
+    the head of each rank's block, the edge zero-filled) through the halo
+    kernel, its plain twin and tensor copies of the same payload (events in
+    the order A B B A, and the profiler's device time of each)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from blah2_tpu_torch.config import load_config
-    from blah2_tpu_torch.ops.halo import (_source, halo_permute,
+    from blah2_tpu_torch.ops.halo import (_edge, _source, halo_permute,
                                           halo_permute_plain)
+    from blah2_tpu_torch.parallel.collectives import count_bytes
+    from blah2_tpu_torch.parallel.halo import shift_from_next
     from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
 
     cfg = load_config(os.path.join(root, "config", "config.yml"))
@@ -677,52 +791,68 @@ def phase_sharded_timing(dev, root, card):
         times.append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
 
+    # The main path: counts at 0 just before, read just after; its shifts
+    # from the mesh's collective log.
     n = 5
-    calls = halo_permute.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            sp(*planes)
-        torch.cuda.synchronize()
-    calls = halo_permute.launches - calls
-    by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            t = ev.time_range.elapsed_us()
-            tot, cnt = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (tot + t, cnt + 1)
+    halo_permute.launches = 0
+    with count_bytes(mesh) as ops:
+        by_name = device_profile(lambda: sp(*planes), n)
+    launches = halo_permute.launches
+    shifts = sum(op.kind == "permute" for op in ops)
     busy_ms = sum(t for t, _ in by_name.values()) / n / 1e3
     halo_us = sum(t for k, (t, _) in by_name.items() if "halo_permute" in k)
     halo_n = sum(c for k, (_, c) in by_name.items() if "halo_permute" in k)
-    check(halo_n == calls == 4 * n,
-          f"{halo_n} halo kernels and {calls} launches in {n} CPIs")
+    # Four shifts a step, one launch each on the one card.
+    check(halo_n == launches == shifts == 4 * n,
+          f"{halo_n} halo kernels, {launches} launches and {shifts} shifts "
+          f"in {n} CPIs")
     median = statistics.median(times)
 
-    # The halo kernel alone at the main path's (409, 2) payload.
-    bufs = [torch.randn(HALO_PAYLOADS[0], device=dev) for _ in range(4)]
-    dst = [torch.empty_like(b) for b in bufs]
+    # The main path's largest shift: 409 complex64 samples from the head
+    # of each rank's (1, block_len) block, the last rank zero-filled.
+    count = 409
+    xs = [torch.complex(p[..., 0], p[..., 1]) for p in planes[0]]
     src = _source(mesh, "pulse", True)
+    edge = [_edge(mesh, "pulse", r, True) for r in range(mesh.size)]
+    dst = [torch.empty((1, count), dtype=xs[0].dtype, device=dev)
+           for _ in xs]
+
+    def kernel():
+        shift_from_next(xs, count, mesh, backend="pallas")
+
+    def plain():
+        halo_permute_plain([x[..., :count] for x in xs], mesh, to_left=True,
+                           mask_edge=True)
 
     def library():
         for r, s in enumerate(src):
-            dst[r].copy_(bufs[s])
+            if edge[r]:
+                dst[r].zero_()
+            else:
+                dst[r].copy_(xs[s][..., :count])
 
-    def kernel():
-        halo_permute(bufs, mesh, to_left=True)
-
-    def plain():
-        halo_permute_plain(bufs, mesh, to_left=True)
-
+    got = shift_from_next(xs, count, mesh, backend="pallas")
+    library()
+    check(all(torch.equal(g, d) for g, d in zip(got, dst)),
+          "the copies and the masked shift differ")
     plain_a = cuda_ms(plain, 200)
     kern_a = cuda_ms(kernel, 500)
     lib_a = cuda_ms(library, 500)
     lib_b = cuda_ms(library, 500)
     kern_b = cuda_ms(kernel, 500)
     plain_b = cuda_ms(plain, 200)
+    m = 50
+    prof_lib = device_profile(library, m)
+    prof_kern = device_profile(kernel, m)
     word = halo_permute.error()
     check(word == 0, f"halo kernel error word {word}")
-    # Each input read once and each output written once: 4 ranks' payloads.
-    halo_bytes = 2 * 4 * bufs[0].numel() * 4
+    check(sum(c for _, c in prof_kern.values()) == m,
+          f"the masked shift made {sum(c for _, c in prof_kern.values())} "
+          f"launches in {m} calls")
+    # Each input read once and each output written once: the three ranks
+    # that send, the four that receive (the edge's zeros).
+    payload = count * xs[0].element_size()
+    halo_bytes = (sum(not e for e in edge) + mesh.size) * payload
     timing = {
         "mesh": "1x4", "cpi_ms_median": median, "cpi_ms_min": min(times),
         "cpi_ms_max": max(times), "cpis": len(times), "peak_mib": peak,
@@ -730,12 +860,18 @@ def phase_sharded_timing(dev, root, card):
         "idle_share": 1.0 - busy_ms / median,
         "kernels_per_cpi": sum(c for _, c in by_name.values()) / n,
         "halo_device_ms": halo_us / max(halo_n, 1) / 1e3,
-        "halo_ms": [kern_a, kern_b], "halo_plain_ms": [plain_a, plain_b],
-        "halo_library_ms": [lib_a, lib_b],
-        "halo_bound_ms": halo_bytes / HBM_BYTES_PER_S * 1e3,
+        "halo_launches_per_call": halo_n / shifts,
+        "shift": f"(1, {count}) {xs[0].dtype} from next, edge zeroed",
+        "shift_ms": [kern_a, kern_b], "shift_plain_ms": [plain_a, plain_b],
+        "shift_library_ms": [lib_a, lib_b],
+        "shift_library_device_ms":
+            sum(t for t, _ in prof_lib.values()) / m / 1e3,
+        "shift_library_launches_per_call":
+            sum(c for _, c in prof_lib.values()) / m,
+        "shift_device_ms": sum(t for t, _ in prof_kern.values()) / m / 1e3,
+        "shift_bound_ms": halo_bytes / HBM_BYTES_PER_S * 1e3,
         "card": card, "count": out.detections.count.tolist(),
-        "top": [[k[:80], round(t / n, 2), c // n] for k, (t, c) in sorted(
-            by_name.items(), key=lambda kv: -kv[1][0])[:12]],
+        "top": top(by_name, n, 12),
     }
     print("sharded_timing " + json.dumps(timing))
     return timing
@@ -791,7 +927,7 @@ def main() -> int:
     print(f"sharded default config, 1 x 4 ranks on {card}: "
           f"{sh['cpi_ms_median']:.3f} ms/CPI median over {sh['cpis']} CPIs "
           f"(planes on device to detections); halo kernel "
-          f"{min(sh['halo_ms']) * 1e3:.2f} us a call, "
+          f"{min(sh['shift_ms']) * 1e3:.2f} us a shift, "
           f"{sh['halo_device_ms'] * 1e3:.2f} us device")
     print(json.dumps({"kernels": [{
         "name": "detect",
@@ -805,6 +941,7 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
+        "library_device_ms": None,
         "device_ms": prof["detect_device_ms"],
         "launches_per_call": prof["detect_launches_per_call"],
     }, {
@@ -814,12 +951,14 @@ def main() -> int:
         "replaces": "blah2_tpu/parallel/halo.py:49",
         "launches": halo_launches,
         "max_abs_err": halo_err,
-        "ms": min(sh["halo_ms"]),
-        "plain_ms": min(sh["halo_plain_ms"]),
-        "bound_ms": sh["halo_bound_ms"],
+        "ms": min(sh["shift_ms"]),
+        "plain_ms": min(sh["shift_plain_ms"]),
+        "bound_ms": sh["shift_bound_ms"],
         "bound_by": "bytes",
-        "library_ms": min(sh["halo_library_ms"]),
+        "library_ms": min(sh["shift_library_ms"]),
+        "library_device_ms": sh["shift_library_device_ms"],
         "device_ms": sh["halo_device_ms"],
+        "launches_per_call": sh["halo_launches_per_call"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

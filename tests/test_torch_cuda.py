@@ -51,24 +51,45 @@ def _cases():
     half = 8
     tie_axes = (np.arange(-10, 30, dtype=np.int32),
                 2.0 * np.arange(-half, 16 - half, dtype=np.float64))
+    ragged_axes = (np.arange(-10, 43, dtype=np.int32),
+                   2.0 * np.arange(-18, 19, dtype=np.float64))
+    wide_axes = (np.arange(-10, 190, dtype=np.int32),
+                 2.0 * np.arange(-32, 32, dtype=np.float64))
     return {
         "default-targets": (_map(301, 411, 3, [(150, 200, 80.0),
                                                (40, 30, 60.0)]), default),
         "default-overflow": (_map(301, 411, 4), loose[:8] + (
             amb.delay_axis, amb.doppler_axis)),
         "tie": (_tie_map(), loose + tie_axes),
+        # A map smaller than one tile row, targets on its edges.
+        "ragged": (_map(37, 53, 5, [(0, 52, 30.0), (36, 3, 30.0),
+                                    (18, 26, 40.0)]), loose + ragged_axes),
+        # Centroid windows wider than a tile: 41 x 147 cells against
+        # 24 x 48 (more than 48 KB of shared memory a block).
+        "wide": (_map(64, 200, 6, [(30, 100, 40.0), (33, 150, 45.0)]),
+                 (1e-2, 1, 3, 0, 0.0, 74, 21, 2.0) + wide_axes),
     }
 
 
+def _input(zc, kind):
+    """The detector's input: the complex64 map, or the float32 power the
+    TPU kernel takes."""
+    if kind == "c64":
+        return zc.contiguous()
+    return (zc.real * zc.real + zc.imag * zc.imag).contiguous()
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "c64"])
 @pytest.mark.parametrize("name", ["default-targets", "default-overflow",
-                                  "tie"])
-def test_kernel_matches_plain_on_card(card, name):
-    """csrc/detect.cu against detect_plain on the same card tensors."""
+                                  "tie", "ragged", "wide"])
+def test_kernel_matches_plain_on_card(card, name, kind):
+    """csrc/detect.cu against detect_plain on the same card tensors, on
+    float32 power and on the complex64 map: one launch a call."""
     z, args = _cases()[name]
     fd = FusedDetector(*args, device=card)
     zc = torch.from_numpy(z).to(card)
-    pwr = (zc.real * zc.real + zc.imag * zc.imag).contiguous()
+    pwr = _input(zc, kind)
     kw = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
           fd.win_cols)
     launches = tdetect.detect.launches
@@ -77,6 +98,7 @@ def test_kernel_matches_plain_on_card(card, name):
     assert tdetect.detect.launches == launches + 1
     want = detect_plain(pwr, *kw)
     assert torch.equal(got.keep, want.keep)
+    assert int(got.keep.sum()) >= 1
     assert float((got.db - want.db).abs().max()) <= 1e-4
     assert abs(float(got.noise - want.noise)) <= 1e-4
     assert abs(float(got.rawmax - want.rawmax)) <= 1e-4
@@ -94,6 +116,10 @@ def test_kernel_rejects_what_it_does_not_take(card):
     scale = torch.ones(1, 6, device=card)
     with pytest.raises(TypeError, match="float32"):
         tdetect.detect(pwr.double(), scale, pwr, 1, 2, 1, 1)
+    with pytest.raises(TypeError, match="complex64"):
+        tdetect.detect(pwr.to(torch.complex128), scale, pwr, 1, 2, 1, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        tdetect.detect(pwr, scale, pwr, 2, 6, 100, 300)
     with pytest.raises(ValueError, match="contiguous"):
         tdetect.detect(pwr, scale, torch.ones(6, 4, device=card).t(), 1, 2,
                        1, 1)
@@ -102,14 +128,15 @@ def test_kernel_rejects_what_it_does_not_take(card):
 
 
 @pytest.mark.cuda
-def test_batched_kernel_matches_plain_on_card(card):
+@pytest.mark.parametrize("kind", ["f32", "c64"])
+def test_batched_kernel_matches_plain_on_card(card, kind):
     """One call on a (B, nr, nc) stack: each map against detect_plain on
     the stack and against the kernel's own 2-D call."""
     z_t, args_t = _cases()["default-targets"]
     z_o, _ = _cases()["default-overflow"]
     fd = FusedDetector(*args_t, device=card)
     zc = torch.from_numpy(np.stack([z_t, z_o])).to(card)
-    pwr = (zc.real * zc.real + zc.imag * zc.imag).contiguous()
+    pwr = _input(zc, kind)
     kw = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
           fd.win_cols)
     got = tdetect.detect(pwr, *kw)
@@ -124,6 +151,36 @@ def test_batched_kernel_matches_plain_on_card(card):
         one = tdetect.detect(pwr[i].contiguous(), *kw)
         assert torch.equal(one.keep, got.keep[i])
         assert torch.equal(one.noise, got.noise[i])
+
+
+@pytest.mark.cuda
+def test_kernel_scratch_one_buffer_per_stream(card):
+    """The ticket counters and partials: one buffer per (device, stream),
+    laid out anew (its counters zeroed) when the stack's shape changes, so
+    that calls alternating between shapes stay equal to detect_plain."""
+    z_t, args_t = _cases()["default-targets"]
+    z_r, args_r = _cases()["ragged"]
+    big = FusedDetector(*args_t, device=card)
+    small = FusedDetector(*args_r, device=card)
+    stack = torch.from_numpy(np.stack([z_t, z_t[::-1].copy()])).to(card)
+    calls = [(stack, big), (torch.from_numpy(z_r).to(card), small),
+             (stack[1].contiguous(), big)]
+    for zc, fd in calls * 2:
+        kw = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
+              fd.win_cols)
+        got = tdetect.detect(zc, *kw)
+        want = detect_plain(zc, *kw)
+        assert torch.equal(got.keep, want.keep)
+        assert float((got.noise - want.noise).abs().max()) <= 1e-4
+    stream = torch.cuda.current_stream(card).cuda_stream
+    held = [k for k in tdetect.detect._scratch if k[0] == card.index]
+    assert (card.index, stream) in held
+    side = torch.cuda.Stream(card)
+    with torch.cuda.stream(side):
+        tdetect.detect(stack, *kw)
+    side.synchronize()
+    assert len([k for k in tdetect.detect._scratch
+                if k[0] == card.index]) == len(held) + 1
 
 
 def _halo_case(card, shape, count, seed):
@@ -155,6 +212,64 @@ def test_halo_kernel_matches_plain_on_card(card, shape, to_left):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert halo_permute.error() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 4)], ids=["1x4", "2x4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64,
+                                   torch.complex128],
+                         ids=["f32", "c64", "c128"])
+@pytest.mark.parametrize("batch", [1, 2], ids=["B1", "B2"])
+def test_halo_kernel_strided_complex_edge_zero(card, shape, dtype, batch):
+    """The masked form on slices as they lie: heads and tails of (B, n)
+    blocks, complex as it is, the ring's edge zero-filled; bit-equal to the
+    plain twin, one launch a call, no flag wait on one card."""
+    from blah2_tpu_torch.ops.halo import halo_permute, halo_permute_plain
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+
+    mesh = make_radar_mesh(*shape, devices=[card] * (shape[0] * shape[1]))
+    gen = torch.Generator(device="cpu").manual_seed(batch)
+    for i, (count, to_left) in enumerate([(409, True), (409, False),
+                                          (10, True), (1, False)]):
+        blocks = [torch.randn((batch, 1000), generator=gen, dtype=dtype)
+                  .to(card) for _ in range(mesh.size)]
+        parts = [b[..., :count] if to_left else b[..., -count:]
+                 for b in blocks]
+        launches = halo_permute.launches
+        got = halo_permute(parts, mesh, to_left=to_left, collective_id=i,
+                           mask_edge=True)
+        want = halo_permute_plain(parts, mesh, to_left=to_left,
+                                  mask_edge=True)
+        torch.cuda.synchronize()
+        assert halo_permute.launches == launches + 1
+        for r, (g, w) in enumerate(zip(got, want)):
+            assert g.dtype == dtype and g.shape == (batch, count)
+            bits = torch.view_as_real(g) if g.is_complex() else g
+            wbits = torch.view_as_real(w) if w.is_complex() else w
+            assert torch.equal(bits, wbits)
+            if mesh.axis_index(r, "pulse") == (shape[1] - 1 if to_left
+                                               else 0):
+                assert not bool(bits.any())
+    assert halo_permute.error() == 0
+
+
+@pytest.mark.cuda
+def test_halo_plans_go_with_the_mesh(card):
+    """The wrapper's cached plans are dropped with their mesh."""
+    import gc
+    import weakref
+
+    from blah2_tpu_torch.ops.halo import halo_permute
+
+    mesh, bufs = _halo_case(card, (1, 4), 8, seed=0)
+    halo_permute(bufs, mesh)
+    halo_permute(bufs, mesh, to_left=False, mask_edge=True)
+    assert len(halo_permute._plans[mesh]) == 2
+    alive = weakref.ref(mesh)
+    n = len(halo_permute._plans)
+    del mesh
+    gc.collect()
+    assert alive() is None and len(halo_permute._plans) == n - 1
 
 
 @pytest.mark.cuda
@@ -246,3 +361,14 @@ def test_sharded_pipeline_across_cards(card):
     v = a.detections.valid[0]
     assert bool(torch.any((a.detections.delay[0][v] - 20).abs() < 1.0))
     assert halo_permute.error() == 0
+
+
+@pytest.mark.cuda
+def test_current_stream_handle_is_the_current_stream(card):
+    from blah2_tpu_torch.device import current_stream_handle
+
+    assert current_stream_handle(card.index) == \
+        torch.cuda.current_stream(card).cuda_stream
+    side = torch.cuda.Stream(card)
+    with torch.cuda.stream(side):
+        assert current_stream_handle(card.index) == side.cuda_stream

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from blah2_tpu.ops.pallas_detect import FusedDetector as JaxFused
+from blah2_tpu_torch.dsp.cfar import cfar_threshold_scale
 from blah2_tpu_torch.ops import detect as tdetect
 from blah2_tpu_torch.ops.detect import FusedDetector, detect_plain
 
@@ -194,3 +195,151 @@ def test_batched_stack_matches_each_map(case):
                                       np.asarray(jdet.row)[jv])
         np.testing.assert_array_equal(det.col[i].numpy()[v],
                                       np.asarray(jdet.col)[jv])
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(c[:2]) for c in CASES])
+def test_complex_input_matches_power_input_and_jax(case):
+    """The complex64 map through detect_plain and FusedDetector (which now
+    hands it to the detector as it is): the same outputs as the float32
+    power the port formed before, and the JAX detector's, which forms the
+    power itself."""
+    z = _case_map(case)
+    port, ref = _both(case)
+    zt = torch.from_numpy(z)
+    kw = (port._scale, port._cell_ok, port.n_guard, port.n_train,
+          port.win_rows, port.win_cols)
+    pwr = (zt.real * zt.real + zt.imag * zt.imag).contiguous()
+    got, want = detect_plain(zt, *kw), detect_plain(pwr, *kw)
+    for k in got._fields:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    jdb, jnoise, jmaxp, jdet = ref(jnp.asarray(z))
+    np.testing.assert_allclose(got.db.numpy(), np.asarray(jdb), atol=2e-4)
+    assert abs(float(got.noise) - float(jnoise)) <= 1e-4
+    assert abs(float(got.rawmax - got.noise) - float(jmaxp)) <= 1e-4
+    _, _, _, det = port(zt)
+    jv = np.asarray(jdet.valid)
+    assert int(det.count) == int(jdet.count) == int(got.keep.sum())
+    np.testing.assert_array_equal(det.row.numpy()[det.valid.numpy()],
+                                  np.asarray(jdet.row)[jv])
+    np.testing.assert_array_equal(det.col.numpy()[det.valid.numpy()],
+                                  np.asarray(jdet.col)[jv])
+
+
+# -- the kernel's tiling ----------------------------------------------------
+
+# (nr, nc, pfa, guard, train, win_rows, win_cols): the default config's
+# detector, a ragged map (37 x 53: partial tiles in both directions), and
+# centroid windows wider than a tile (41 x 147 cells against 24 x 48).
+TILE_CASES = {
+    "default": (301, 411, 1e-5, 2, 6, 5, 5),
+    "default-loose": (301, 411, 1e-2, 1, 3, 5, 5),
+    "ragged": (37, 53, 1e-2, 2, 6, 5, 5),
+    "wide": (64, 200, 1e-2, 1, 3, 20, 73),
+}
+
+
+def _tile_inputs(name, seed=7):
+    nr, nc, pfa, g, t, wr, wc = TILE_CASES[name]
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((nr, nc)) + 1j * rng.standard_normal((nr, nc))
+    # A tie inside one centroid window, a peak on the left edge (masked by
+    # cell_ok), one in the corner, one beside a weaker neighbour.
+    for r, c, a in [(nr // 2, nc // 2, 40.0), (nr // 2, nc // 2 + 9, 40.0),
+                    (3, 1, 30.0), (nr - 1, nc - 1, 25.0),
+                    (nr // 3, nc // 4, 30.0),
+                    (nr // 3 + 1, nc // 4 + 1, 20.0)]:
+        z[r, c] += a
+    pwr = torch.from_numpy(np.abs(z).astype(np.float32)) ** 2
+    scale = torch.from_numpy(
+        cfar_threshold_scale(pfa, g, t, nc).astype(np.float32))[None, :]
+    ok = torch.ones(nr, nc)
+    ok[:, :2] = 0.0
+    return pwr, scale, ok, g, t, wr, wc
+
+
+def _tiled_detect(pwr, scale, cell_ok, g, t, wr, wc):
+    """The kernel's blocking in plain torch: each tile from its own loaded
+    region (tile_geometry's halos, zeros outside the map), CFAR edges by
+    the map's column index, hit power over the window halo, the separable
+    window max, and the partial dB sums in block order. A halo one short
+    breaks a slice below."""
+    nr, nc = pwr.shape
+    geo = tdetect.tile_geometry(nr, nc, g, t, wr, wc)
+    tr, tc, hr, hc, hm = (geo.tile_rows, geo.tile_cols, geo.halo_rows,
+                          geo.halo_cols, geo.hit_halo_cols)
+    hp = hc - hm
+    gx, gy = geo.grid
+
+    def canvas(a, r_pad):
+        out = torch.zeros(a.shape[0] + 2 * r_pad + (gy * tr - nr if r_pad
+                                                    else 0),
+                          gx * tc + 2 * hc)
+        out[r_pad:r_pad + a.shape[0], hc:hc + nc] = a
+        return out
+
+    big, ok, sc = canvas(pwr, hr), canvas(cell_ok, hr), canvas(scale, 0)
+    db = torch.full((nr, nc), float("nan"))
+    keep = torch.full((nr, nc), float("nan"))
+    partial = []
+    mw = tc + 2 * hm
+    for ty in range(gy):
+        for tx in range(gx):
+            r0, c0 = ty * tr, tx * tc
+            p_reg = big[r0:r0 + tr + 2 * hr, c0:c0 + tc + 2 * hc]
+            gj = torch.arange(c0 - hm, c0 - hm + mw)
+            gi = torch.arange(r0 - hr, r0 + tr + hr)
+            inside = ((gi >= 0) & (gi < nr))[:, None] \
+                & ((gj >= 0) & (gj < nc))[None, :]
+            p = p_reg[:, hp:hp + mw]
+            train = torch.zeros_like(p)
+            for o in range(g + 1, g + t + 1):
+                train = train + torch.where(gj - o >= 1,
+                                            p_reg[:, hp - o:hp - o + mw], 0.0)
+                train = train + torch.where(gj + o < nc,
+                                            p_reg[:, hp + o:hp + o + mw], 0.0)
+            s = sc[0, c0 + hc - hm:c0 + hc - hm + mw]
+            o_reg = ok[r0:r0 + tr + 2 * hr, c0 + hp:c0 + hp + mw]
+            hit = inside & (p > s * train) & (o_reg > 0.0)
+            m = torch.where(hit, p, 0.0)
+            rm = m[0:tr]
+            for d in range(1, 2 * wr + 1):
+                rm = torch.maximum(rm, m[d:d + tr])
+            wmax = rm[:, 0:tc]
+            for d in range(1, 2 * wc + 1):
+                wmax = torch.maximum(wmax, rm[:, d:d + tc])
+            p_in = p_reg[hr:hr + tr, hc:hc + tc]
+            k = (m[hr:hr + tr, hm:hm + tc] > 0.0) & (p_in >= wmax)
+            rows, cols = min(tr, nr - r0), min(tc, nc - c0)
+            d_in = (5.0 * torch.log10(p_in))[:rows, :cols]
+            db[r0:r0 + rows, c0:c0 + cols] = d_in
+            keep[r0:r0 + rows, c0:c0 + cols] = k[:rows, :cols].float()
+            partial.append(d_in.sum())
+    return db, keep, torch.stack(partial).sum() / (nr * nc)
+
+
+def test_tile_geometry_default_and_limits():
+    geo = tdetect.tile_geometry(301, 411, 2, 6, 5, 5)
+    assert geo.grid == (9, 13) and geo.grid[0] * geo.grid[1] <= 132
+    assert (geo.tile_rows, geo.tile_cols) == (24, 48)
+    assert (geo.halo_rows, geo.halo_cols, geo.hit_halo_cols) == (5, 13, 5)
+    # 34 x 74 power and cell_ok (then hit power), 74 scale, 34 powers of
+    # map column 0, 24 x 58 row maxima.
+    assert geo.smem_bytes == 4 * (2 * 34 * 74 + 74 + 34 + 24 * 58)
+    assert tdetect.tile_geometry(37, 53, 2, 6, 5, 5).grid == (2, 2)
+    wide = tdetect.tile_geometry(64, 200, 1, 3, 20, 73)
+    assert 48 * 1024 < wide.smem_bytes < tdetect.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        tdetect.tile_geometry(301, 411, 2, 6, 100, 300)
+
+
+@pytest.mark.parametrize("name", list(TILE_CASES))
+def test_tiled_model_matches_whole_map(name):
+    """detect_plain on the whole map against the kernel's tiling run tile
+    by tile with tile_geometry's halos."""
+    pwr, scale, ok, g, t, wr, wc = _tile_inputs(name)
+    want = detect_plain(pwr, scale, ok, g, t, wr, wc)
+    db, keep, noise = _tiled_detect(pwr, scale, ok, g, t, wr, wc)
+    assert int(want.keep.sum()) >= 3
+    assert torch.equal(keep, want.keep)
+    assert torch.equal(db, want.db)
+    assert abs(float(noise - want.noise)) <= 1e-4

@@ -202,3 +202,98 @@ def test_collectives_match_numpy_and_count_bytes():
     assert mesh.comm_log is None  # closed with the block
     with pytest.raises(ValueError, match="split"):
         coll.psum_scatter(xs, mesh, "pulse", dim=0)
+
+
+# -- the masked, strided form: slices as they lie, complex as it is -----------
+
+def _jax_shift_batched(v, shape, count, direction):
+    """JAX's shift on the (n_cpi, B, n_pulse * blk) array ``v``: each rank
+    shifts its (B, blk) block, the CPI batch riding along."""
+    mesh = jax_mesh(*shape)
+    fn = jax_from_next if direction == "next" else jax_from_prev
+    spec = P("cpi", None, "pulse")
+    vs = jax.device_put(jnp.asarray(v), NamedSharding(mesh, spec))
+
+    def body(x):
+        return fn(x[0], count, "pulse", backend="pallas", interpret=True,
+                  n_mesh_axes=2)[None]
+
+    return np.asarray(jax.jit(jax.shard_map(
+        body, mesh=mesh, in_specs=spec, out_specs=spec,
+        check_vma=False))(vs))
+
+
+@pytest.mark.parametrize("batch", [1, 2], ids=["B1", "B2"])
+@pytest.mark.parametrize("dtype", [np.float32, np.complex64, np.complex128],
+                         ids=["f32", "c64", "c128"])
+@pytest.mark.parametrize("direction", ["next", "prev"])
+def test_masked_strided_halo_matches_jax(direction, dtype, batch):
+    """The halo wrapper with the edge mask, on (B, blk) blocks sliced where
+    they lie, against JAX's shift_from_next/prev on the 2 x 4 mesh; the
+    kernel's row layout of each slice: B runs at the block's row stride."""
+    shape, count, blk = (2, 4), 5, 24
+    rng = np.random.default_rng(17)
+    v = rng.standard_normal((2, batch, 4 * blk))
+    if np.issubdtype(dtype, np.complexfloating):
+        v = v + 1j * rng.standard_normal(v.shape)
+    v = v.astype(dtype)
+    want = _jax_shift_batched(v, shape, count, direction)
+    want = want.reshape(2, batch, 4, count)
+
+    mesh = make_radar_mesh(*shape, devices=CPU8)
+    blocks = [torch.from_numpy(v[c, :, p * blk:(p + 1) * blk].copy())
+              for c in range(2) for p in range(4)]
+    head = direction == "next"
+    parts = [b[..., :count] if head else b[..., -count:] for b in blocks]
+    per_word = parts[0].element_size() // 4
+    assert thalo.row_layout(parts[0]) == (batch, count * per_word,
+                                          blk * per_word if batch > 1
+                                          else count * per_word)
+    got = thalo.halo_permute(parts, mesh, to_left=head, collective_id=2,
+                             mask_edge=True)
+    shifted = (shift_from_next if head else shift_from_prev)(
+        blocks, count, mesh, backend="pallas", collective_id=2)
+    for r in range(8):
+        c, p = mesh.coords(r)
+        assert got[r].dtype == parts[r].dtype
+        assert got[r].shape == (batch, count)
+        np.testing.assert_array_equal(got[r].numpy(), want[c, :, p])
+        assert torch.equal(shifted[r], got[r])
+
+
+@pytest.mark.parametrize("to_left", [True, False])
+def test_halo_permute_plain_masks_the_edge(to_left):
+    mesh = make_radar_mesh(2, 4, devices=CPU8)
+    bufs = [torch.full((3, 2), float(r + 1)) for r in range(8)]
+    got = thalo.halo_permute_plain(bufs, mesh, to_left=to_left,
+                                   mask_edge=True)
+    circ = thalo.halo_permute_plain(bufs, mesh, to_left=to_left)
+    for r in range(8):
+        _, p = mesh.coords(r)
+        edge = p == (3 if to_left else 0)
+        assert torch.equal(got[r], torch.zeros(3, 2) if edge else circ[r])
+
+
+@pytest.mark.parametrize("case", ["c64-head", "c128-tail", "f32-1d",
+                                  "f64-contiguous", "f32-3d"])
+def test_row_layout(case):
+    """How the kernel reads a payload: runs of 32-bit words at a stride."""
+    blk = torch.zeros(3, 50, dtype=torch.complex128)
+    t, want = {
+        "c64-head": (blk.to(torch.complex64)[:, :7], (3, 14, 100)),
+        "c128-tail": (blk[:, -7:], (3, 28, 200)),
+        "f32-1d": (torch.zeros(50)[:9], (1, 9, 9)),
+        "f64-contiguous": (torch.zeros(3, 7, dtype=torch.float64),
+                           (3, 14, 14)),
+        "f32-3d": (torch.zeros(2, 3, 50)[..., 10:20], (6, 10, 50)),
+    }[case]
+    assert thalo.row_layout(t) == want
+
+
+def test_row_layout_rejects_what_the_kernel_cannot_read():
+    with pytest.raises(ValueError, match="contiguous"):
+        thalo.row_layout(torch.zeros(2, 8).t())
+    with pytest.raises(ValueError, match="contiguous"):
+        thalo.row_layout(torch.zeros(4, 6, 5)[:, :3, :2])
+    with pytest.raises(TypeError, match="float32 or float64"):
+        thalo.row_layout(torch.zeros(4, dtype=torch.float16))
