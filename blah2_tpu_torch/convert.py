@@ -6,7 +6,8 @@ spectrum twiddle and permutation, the CFAR scale and cell masks, and the
 delay and Doppler axes. In the port they are registered buffers of the
 stage modules, so ``CpiPipeline.state_dict()`` holds them, keyed by the same
 attribute paths as the JAX ``CpiPipeline`` (``ambiguity._doppler_dft``,
-``fused_detector._scale``, ...). Buffers the port derives for itself (lag
+``fused_detector._scale``, ...; with ``process.spectrum.nSub`` > 1 the sub
+analyser's ``spectrum_sub._twiddle`` and ``spectrum_sub._perm``). Buffers the port derives for itself (lag
 and permutation indices) are not part of it. The sharded pipeline's
 ``state_dict()`` adds its own derived constants under the JAX
 ``ShardedCpiPipeline``'s names: the padded Doppler operator ``_w_pad``, the

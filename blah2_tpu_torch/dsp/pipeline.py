@@ -1,11 +1,14 @@
 """The per-CPI processing pipeline (counterpart of
 ``blah2_tpu/dsp/pipeline.py``).
 
-One CPI runs: wire decode → spectrum → Wiener-Hopf clutter filter →
+One CPI runs: wire decode → spectrum (and sub-CPI spectra when
+``process.spectrum.nSub`` > 1) → Wiener-Hopf clutter filter →
 cross-ambiguity → fused detection (map metrics, CA-CFAR, centroid) →
 fixed-capacity extraction → peak interpolation. Every stage runs on
 ``device``; the caller receives small products (dB map, spectrum,
-fixed-capacity detections) as tensors there.
+fixed-capacity detections) as tensors there. ``call_staged`` runs the same
+CPI as four stages, each waited for, so that the runtime can time them
+under the reference's stage names.
 
 The tracker stays on the host, as in the JAX package.
 """
@@ -30,6 +33,11 @@ from blah2_tpu_torch.ops.detect import FusedDetector
 from blah2_tpu_torch.ops.pack12 import unpack12_quads, unpack_components
 
 
+#: host plane dtype -> torch dtype (``CpiPipeline.to_planes`` on tensors).
+_TORCH_REAL = {np.dtype(np.float32): torch.float32,
+               np.dtype(np.float64): torch.float64}
+
+
 class CpiOutputs(NamedTuple):
     db_map: torch.Tensor        # (n_doppler_bins, n_delay_bins) absolute dB
     noise_power: torch.Tensor   # scalar dB
@@ -37,6 +45,9 @@ class CpiOutputs(NamedTuple):
     spectrum_db: torch.Tensor   # (n_spectrum,) dB
     clutter_ok: torch.Tensor    # bool scalar
     detections: Optional[CfarDetections]
+    # Sub-CPI spectra (process.spectrum.nSub > 1): (k, n_spectrum) dB,
+    # None when disabled.
+    sub_spectra_db: Optional[torch.Tensor] = None
 
 
 def _empty_detections(device) -> CfarDetections:
@@ -76,11 +87,8 @@ class CpiPipeline(nn.Module):
         self.n_samples = n = config.n_samples
         if spectrum_bandwidth is None:
             spectrum_bandwidth = proc.spectrum.bandwidth
-        if int(proc.spectrum.n_sub or 1) > 1:
-            raise NotImplementedError(
-                "process.spectrum.nSub > 1 (sub-CPI spectra) is not ported to "
-                "blah2_tpu_torch yet (ROADMAP.md queue 1: 'call_staged and "
-                "sub-CPI spectra')")
+        self._plane_dtype = np.float64 if dtype == torch.complex128 \
+            else np.float32
 
         self.ambiguity = AmbiguityProcessor(
             proc.ambiguity.delay_min, proc.ambiguity.delay_max,
@@ -93,6 +101,25 @@ class CpiPipeline(nn.Module):
                 diag_load=diag_load, device=device)
         self.spectrum = SpectrumAnalyser(n, spectrum_bandwidth, cap.fc,
                                          dtype=dtype, device=device)
+        # Sub-CPI spectra: k segments of n//k samples. The sub analyser's
+        # bin count and offset parity are pinned to the full-CPI
+        # analyser's, so every waterfall row shares the one emitted
+        # frequency axis (at n = 1.5e6 and nSub = 4 a free-running sub
+        # geometry gives 2005 bins against 2000).
+        self.spectrum_sub = None
+        self.n_spectrum_sub = int(proc.spectrum.n_sub or 1)
+        if self.n_spectrum_sub > 1:
+            n_seg = n // self.n_spectrum_sub
+            if n_seg < 2 * self.spectrum.n_spectrum:
+                raise ValueError(
+                    f"process.spectrum.nSub={self.n_spectrum_sub} leaves "
+                    f"segments of {n_seg} samples — need at least "
+                    f"2x{self.spectrum.n_spectrum} for the shared "
+                    f"spectrum-bin geometry")
+            self.spectrum_sub = SpectrumAnalyser(
+                n_seg, spectrum_bandwidth, cap.fc, dtype=dtype,
+                n_spectrum=self.spectrum.n_spectrum,
+                offset_even=self.spectrum.decimation % 2 == 0, device=device)
 
         self.detection_enabled = proc.detection.enable
         if fused_detect == "auto":
@@ -123,6 +150,8 @@ class CpiPipeline(nn.Module):
         """One CPI from complex reference ``x`` and surveillance ``y`` that
         already lie on ``self.device``."""
         spec_db = SpectrumAnalyser.to_db(self.spectrum(x))
+        sub_db = None if self.spectrum_sub is None \
+            else self._sub_spectra_db(x)
         z, clutter_ok = self.cross_map(x, y)
         if not self.detection_enabled:
             db, noise, max_power = map_metrics(z)
@@ -136,7 +165,14 @@ class CpiPipeline(nn.Module):
             det = self.interpolate(det, db - noise)
         return CpiOutputs(db_map=db, noise_power=noise, max_power=max_power,
                           spectrum_db=spec_db, clutter_ok=clutter_ok,
-                          detections=det)
+                          detections=det, sub_spectra_db=sub_db)
+
+    def _sub_spectra_db(self, x: torch.Tensor) -> torch.Tensor:
+        """(k, n_spectrum) dB sub-CPI spectra of the complex CPI: one
+        batched call of the sub analyser over the k segments."""
+        k, n_seg = self.n_spectrum_sub, self.spectrum_sub.n_samples
+        return SpectrumAnalyser.to_db(
+            self.spectrum_sub(x[: k * n_seg].reshape(k, n_seg)))
 
     def cross_map(self, x: torch.Tensor, y: torch.Tensor):
         """The complex cross-ambiguity map of one CPI after the clutter
@@ -147,6 +183,94 @@ class CpiPipeline(nn.Module):
         else:
             clutter_ok = torch.ones((), dtype=torch.bool, device=self.device)
         return self.ambiguity(x, y), clutter_ok
+
+    # -- staged mode: the CPI as four stages the runtime times under the
+    # reference's keys (spectrum / clutter_filter / ambiguity_processing /
+    # detector, `src/blah2.cpp:261-337`); intermediates stay on the device.
+    def stage_spectrum(self, xp) -> torch.Tensor:
+        return SpectrumAnalyser.to_db(self.spectrum(self._complex(xp)))
+
+    def stage_clutter(self, xp, yp):
+        x, y = self._complex(xp), self._complex(yp)
+        if self.clutter is None:
+            return x, y, torch.ones((), dtype=torch.bool, device=self.device)
+        y2, ok = self.clutter(x, y)
+        return x, y2, ok
+
+    def stage_ambiguity(self, x: torch.Tensor, y: torch.Tensor):
+        z = self.ambiguity(x, y)
+        db, noise, max_power = map_metrics(z)
+        return z, db, noise, max_power
+
+    def stage_detect(self, z: torch.Tensor, db: torch.Tensor,
+                     noise: torch.Tensor) -> CfarDetections:
+        if not self.detection_enabled:
+            return _empty_detections(self.device)
+        if self.fused_detector is not None:
+            # Time the production path: the fused detector (its kernel on
+            # a card), map metrics recomputed inside it as in the fused CPI.
+            db_f, noise_f, _, det = self.fused_detector(z)
+            return self.interpolate(det, db_f - noise_f)
+        det = self.centroid(self.cfar(z, noise))
+        return self.interpolate(det, db - noise)
+
+    @property
+    def sub_spectra_fn(self):
+        """(k, n_spectrum) dB sub-CPI spectra of one CPI's planes, or None
+        when ``nSub`` is 1 (staged samples compute them outside their timed
+        stages; the fused CPI computes them inline)."""
+        if self.spectrum_sub is None:
+            return None
+        return lambda xp: self._sub_spectra_db(self._complex(xp))
+
+    def call_staged(self, x, y, timer=None) -> CpiOutputs:
+        """Run the CPI as four stages, each one waited for before
+        ``timer.stage`` (a ``StageTimer``) records it under the reference
+        names. The products equal the fused call's but for
+        ``sub_spectra_db``, which stays None here."""
+        on_card = self.device.type == "cuda"
+
+        def mark(name):
+            # A mark that did not wait would time the enqueue, not the
+            # stage: eager PyTorch returns before the card has finished.
+            if timer is not None:
+                if on_card:
+                    torch.cuda.synchronize(self.device)
+                timer.stage(name)
+
+        xp = self._tensor(self.to_planes(x, self._plane_dtype))
+        yp = self._tensor(self.to_planes(y, self._plane_dtype))
+        spec_db = self.stage_spectrum(xp)
+        mark("spectrum")
+        xc, yc, clutter_ok = self.stage_clutter(xp, yp)
+        mark("clutter_filter")
+        z, db, noise, max_power = self.stage_ambiguity(xc, yc)
+        mark("ambiguity_processing")
+        det = self.stage_detect(z, db, noise)
+        mark("detector")
+        return CpiOutputs(db_map=db, noise_power=noise, max_power=max_power,
+                          spectrum_db=spec_db, clutter_ok=clutter_ok,
+                          detections=det)
+
+    @staticmethod
+    def to_planes(x, plane_dtype=np.float32):
+        """Complex samples as (n, 2) real/imag planes of ``plane_dtype``
+        (zero-copy for complex64 NumPy at float32). Integer planes (ADC
+        counts) pass through: they widen on the device."""
+        if isinstance(x, torch.Tensor):
+            if x.is_complex():
+                x = torch.view_as_real(x)
+            elif not x.is_floating_point():
+                return x
+            return x.to(_TORCH_REAL[np.dtype(plane_dtype)])
+        x = np.asarray(x)
+        if x.dtype == np.complex64 and plane_dtype == np.float32:
+            return np.ascontiguousarray(x).view(np.float32).reshape(-1, 2)
+        if np.iscomplexobj(x):
+            return np.stack([x.real, x.imag], axis=-1).astype(plane_dtype)
+        if np.issubdtype(x.dtype, np.integer):
+            return x
+        return x.astype(plane_dtype, copy=False)
 
     # -- entries -----------------------------------------------------------
     def _tensor(self, a) -> torch.Tensor:

@@ -30,8 +30,17 @@ class SpectrumAnalyser(nn.Module):
         bandwidth: float = 2000.0,
         fc: float = 204_640_000.0,
         dtype: torch.dtype = torch.complex64,
+        n_spectrum: "int | None" = None,
+        offset_even: "bool | None" = None,
         device=None,
     ):
+        """Default geometry is the reference's: decimation = n/bandwidth,
+        n_spectrum = n//decimation. ``n_spectrum`` sets the bin count
+        instead (sub-CPI analysers pin it to the full-CPI analyser's, so
+        every spectrum row shares one frequency axis), with decimation =
+        n//n_spectrum; ``offset_even`` then lowers the decimation by one
+        where its parity differs, so the half-bin frequency offset, which
+        the axis keys on that parity, matches the full-CPI analyser's."""
         super().__init__()
         device = resolve_device(device)
         self.n_samples = int(n_samples)
@@ -39,8 +48,19 @@ class SpectrumAnalyser(nn.Module):
         self.fc = float(fc)
         self.dtype = dtype
 
-        self.decimation = int(self.n_samples / self.bandwidth)
-        self.n_spectrum = self.n_samples // self.decimation
+        if n_spectrum is None:
+            self.decimation = int(self.n_samples / self.bandwidth)
+            self.n_spectrum = self.n_samples // self.decimation
+        else:
+            self.n_spectrum = int(n_spectrum)
+            self.decimation = self.n_samples // self.n_spectrum
+            if offset_even is not None and \
+                    (self.decimation % 2 == 0) != offset_even:
+                self.decimation -= 1
+            if self.decimation < 1:
+                raise ValueError(
+                    f"n_samples={self.n_samples} too short for "
+                    f"{self.n_spectrum} spectrum bins")
         self.nfft = self.n_spectrum * self.decimation
         ns, dec, nfft = self.n_spectrum, self.decimation, self.nfft
 
@@ -63,10 +83,12 @@ class SpectrumAnalyser(nn.Module):
         self.frequency_khz = ((idx * self.bandwidth) + offset + self.fc) / 1000.0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Complex decimated spectrum, shape (n_spectrum,)."""
-        x = x[: self.nfft].to(self.dtype)
+        """Complex decimated spectrum over the last dimension: (n_spectrum,)
+        for one sequence, (k, n_spectrum) for a (k, n) batch."""
+        x = x[..., : self.nfft].to(self.dtype)
         folded = torch.sum(
-            x.reshape(self.decimation, self.n_spectrum) * self._twiddle, dim=0)
+            x.reshape(x.shape[:-1] + (self.decimation, self.n_spectrum))
+            * self._twiddle, dim=-2)
         return self.finish(folded)
 
     def twiddle_padded(self, pad_to: int) -> torch.Tensor:

@@ -103,3 +103,14 @@ def unpack_components(chunk: torch.Tensor):
         m = v.shape[0] // 2
         return v[:m], v[m:]
     return chunk[:, 0], chunk[:, 1]
+
+
+def unpack_planes(chunk: torch.Tensor) -> torch.Tensor:
+    """Decode one wire chunk to ``(m, 2)`` planes, for the staged-sample
+    path, which takes planes: packed-12-bit uint8 chunks give int32
+    planes, plane chunks pass through. The fused path uses
+    :func:`unpack_components` and never interleaves."""
+    if chunk.dtype == torch.uint8:
+        re, im = unpack_components(chunk)
+        return torch.stack([re, im], dim=-1)
+    return chunk

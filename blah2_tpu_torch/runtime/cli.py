@@ -1,0 +1,159 @@
+"""CLI entry point: ``python -m blah2_tpu_torch.runtime.cli --config <yml>``
+(counterpart of ``blah2_tpu/runtime/cli.py``).
+
+Mirrors the reference binary's interface ``blah2 -c config.yml``
+(`src/blah2.cpp:387-436`), plus flags for the port: the device, CPI count
+limits, in-process vs TCP API wiring, and a web root for the display layer.
+The runtime runs on the card unless ``--device cpu`` asks for the host; with
+no card it exits non-zero. Mesh mode and multi-process runs are not ported:
+their flags are parsed and refused (ROADMAP.md queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="blah2_tpu_torch",
+        description="passive radar on an NVIDIA card (PyTorch/CUDA)")
+    parser.add_argument("--config", "-c", required=True,
+                        help="YAML config file (blah2 schema)")
+    parser.add_argument("--cpis", type=int, default=None,
+                        help="stop after N CPIs (default: run forever)")
+    parser.add_argument("--device", default=None,
+                        help="torch device to run on (default: the card, "
+                             "cuda; cpu runs on the host)")
+    parser.add_argument("--no-api", action="store_true",
+                        help="do not start the REST API server")
+    parser.add_argument("--tcp-egress", action="store_true",
+                        help="send products over the six TCP streams "
+                             "(reference wire contract) instead of "
+                             "in-process publishing")
+    default_web = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))), "web")
+    parser.add_argument("--web-root",
+                        default=default_web if os.path.isdir(default_web)
+                        else None,
+                        help="serve the web frontend from this directory "
+                             "(default: the repo's web/)")
+    parser.add_argument("--staged-timing", action="store_true",
+                        help="time each DSP stage separately (fills all "
+                             "reference timing keys; waits after each "
+                             "stage)")
+    parser.add_argument("--staged-sample-every", type=int, default=16,
+                        metavar="N",
+                        help="refresh the fused path's per-stage timing "
+                             "split with a staged sample every N CPIs "
+                             "(0 disables; default 16)")
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace of the run to "
+                             "this directory (trace.json)")
+    parser.add_argument("--no-defer-fetch", action="store_true",
+                        help="fetch each CPI's products synchronously "
+                             "instead of one CPI behind (deferred fetch "
+                             "waits for a CPI's products behind the next "
+                             "CPI's work; default on)")
+    parser.add_argument("--transport-recycle", type=int, default=0,
+                        metavar="N",
+                        help="every N CPIs, flush the pending CPI and drop "
+                             "the retained chunks and overlap tails "
+                             "(0 disables)")
+    parser.add_argument("--ingest-chunks", type=int, default=None,
+                        help="stream each CPI to the card in this many "
+                             "blocks as capture delivers them (default: "
+                             "auto)")
+    # Mesh mode and multi-process runs: parsed so that a command line of
+    # the JAX runtime is understood, and refused (not ported).
+    parser.add_argument("--mesh", default=None, metavar="CPIxPULSE",
+                        help="not ported: ROADMAP.md queue 1 item 4")
+    parser.add_argument("--halo-backend", default=None,
+                        choices=("ppermute", "pallas"),
+                        help="not ported: ROADMAP.md queue 1 item 4")
+    parser.add_argument("--row-shard", default=None,
+                        choices=("auto", "on", "off", "calibrate"),
+                        help="not ported: ROADMAP.md queue 1 item 4")
+    parser.add_argument("--coordinator", default=None,
+                        help="not ported: ROADMAP.md queue 1 item 4")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="not ported: ROADMAP.md queue 1 item 4")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="not ported: ROADMAP.md queue 1 item 4")
+    parser.add_argument("--quiet", action="store_true")
+    args = parser.parse_args(argv)
+
+    from blah2_tpu_torch.runtime.radar import MESH_NOT_PORTED
+
+    refused = [flag for flag, value in (
+        ("--mesh", args.mesh), ("--halo-backend", args.halo_backend),
+        ("--row-shard", args.row_shard), ("--coordinator", args.coordinator),
+        ("--num-processes", args.num_processes),
+        ("--process-id", args.process_id)) if value is not None]
+    if refused:
+        print(f"blah2_tpu_torch: {', '.join(refused)}: {MESH_NOT_PORTED}",
+              file=sys.stderr)
+        return 2
+
+    from blah2_tpu_torch.device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(e, file=sys.stderr)
+        return 2
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.runtime.radar import RadarRuntime
+
+    config = load_config(args.config)
+
+    api_server = None
+    if not args.no_api:
+        from blah2_tpu_torch.net.api import ApiServer
+
+        api_server = ApiServer(config, web_root=args.web_root)
+        api_server.start(with_ingest=args.tcp_egress)
+        print(f"API on http://{config.network.ip}:{config.network.api}",
+              flush=True)
+
+    runtime = RadarRuntime(config, api_server=api_server,
+                           use_tcp_egress=args.tcp_egress,
+                           staged_timing=args.staged_timing,
+                           staged_sample_every=args.staged_sample_every,
+                           ingest_chunks=args.ingest_chunks,
+                           defer_fetch=not args.no_defer_fetch,
+                           recycle_every_cpis=args.transport_recycle,
+                           device=device)
+    runtime.install_signal_handlers()
+    runtime.start_capture()
+    profiler = None
+    if args.profile_dir:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+    try:
+        runtime.run(n_cpis=args.cpis, quiet=args.quiet)
+    finally:
+        if profiler is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            profiler.stop()
+            os.makedirs(args.profile_dir, exist_ok=True)
+            profiler.export_chrome_trace(
+                os.path.join(args.profile_dir, "trace.json"))
+        runtime.stop()
+        if api_server is not None:
+            api_server.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -372,3 +372,152 @@ def test_current_stream_handle_is_the_current_stream(card):
     side = torch.cuda.Stream(card)
     with torch.cuda.stream(side):
         assert current_stream_handle(card.index) == side.cuda_stream
+
+
+def _runtime_windows(n, count):
+    from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
+
+    out = []
+    for k in range(count):
+        x, y = synthetic_cpi(n, 200_000, [TargetSpec(40, -77.0, 0.05),
+                                          TargetSpec(85, 44.0, 0.03)],
+                             clutter_amplitude=2.0, noise_amplitude=1e-3,
+                             seed=30 + k)
+        q = np.clip(np.round(np.stack([x.real, x.imag, y.real, y.imag],
+                                      axis=1) * 300), -2047, 2047)
+        out.append(((q[:, 0] + 1j * q[:, 1]).astype(np.complex64),
+                    (q[:, 2] + 1j * q[:, 3]).astype(np.complex64)))
+    return out
+
+
+@pytest.mark.cuda
+def test_pinned_chunked_ingest_equals_synchronous_ingest(card):
+    """Chunks staged through the pinned ring on the copy stream give the
+    same products bit for bit as the same chunks copied synchronously from
+    pageable memory; six CPIs of 8 chunks a channel reuse every pinned
+    buffer of the ring (depth 32) at least once."""
+    import os
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.runtime.radar import RadarRuntime
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "config", "config-synthetic.yml"))
+    cfg.capture.device_type = "RspDuo"  # int16 wire: packed-12 chunks
+    payloads = {}
+    for name in ("pinned", "sync"):
+        rt = RadarRuntime(cfg, staged_sample_every=0, device=card)
+        assert rt.ingest_chunks == 8 and rt._stager is not None
+        if name == "sync":
+            rt._stager = None  # chunks leave as host tensors
+        seen = []
+        orig = rt._emit
+
+        def spy(product, payload, _seen=seen, _orig=orig, **kw):
+            if product in ("map", "detection", "iqdata", "track"):
+                _seen.append((product, payload))
+            return _orig(product, payload, **kw)
+
+        rt._emit = spy
+        for k, (x, y) in enumerate(_runtime_windows(rt.n_samples, 6)):
+            rt.buffer1.push(x)
+            rt.buffer2.push(y)
+            got = rt._extract_cpi_chunks(timeout=1.0)
+            assert got is not None
+            assert got[0][0].device.type == (
+                "cuda" if name == "pinned" else "cpu")
+            assert got[0][0].dtype == torch.uint8
+            assert rt.process_one_cpi_chunks(*got,
+                                             timestamp_ms=1000 + k) is None
+        rt._flush_pending()
+        if name == "pinned":
+            assert rt._stager.copies == 6 * 16
+        payloads[name] = seen
+    assert len(payloads["pinned"]) == 6 * 4
+    assert payloads["pinned"] == payloads["sync"]
+
+
+@pytest.mark.cuda
+def test_deferred_fetch_products_arrive_in_order_on_card(card):
+    """A synthetic capture thread, 6 CPIs under deferred fetch on the card:
+    6 product sets in timestamp order, fused CPIs one behind, the detect
+    kernel launched once a CPI."""
+    import json
+    import os
+    import threading
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.runtime.radar import RadarRuntime
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "config", "config-synthetic.yml"))
+    rt = RadarRuntime(cfg, staged_sample_every=0, device=card)
+    assert rt.defer_fetch and rt.pipeline.fused_detector is not None
+    maps = []
+    orig = rt._emit
+
+    def spy(product, payload, **kw):
+        if product == "map":
+            maps.append((json.loads(payload)["timestamp"], rt.n_cpis_done))
+        return orig(product, payload, **kw)
+
+    rt._emit = spy
+    rt.start_capture()
+    launches = tdetect.detect.launches
+    t = threading.Thread(target=rt.run, kwargs={"n_cpis": 6, "quiet": True},
+                         daemon=True)
+    t.start()
+    t.join(120.0)
+    rt.stop()
+    assert not t.is_alive(), "the run did not end within 120 s"
+    torch.cuda.synchronize(card)
+    assert tdetect.detect.launches - launches == 6
+    assert len(maps) == 6
+    assert [s for s, _ in maps] == sorted(s for s, _ in maps)
+    assert [done - j for j, (_, done) in enumerate(maps)] == [1] * 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 3])
+def test_pinned_stager_never_refills_a_buffer_in_flight(card, depth):
+    """200 distinct chunks through a ring of 1 or 3 pinned buffers, with
+    no wait between puts: every copy lands as its own chunk (a buffer
+    refilled before its copy had finished would hand the card a later
+    chunk's bytes)."""
+    from blah2_tpu_torch.runtime.staging import PinnedStager
+
+    stager = PinnedStager(card, depth)
+    rng = np.random.default_rng(4)
+    chunks = [rng.integers(0, 256, 3 * 2**18, dtype=np.uint8)
+              for _ in range(200)]
+    on_card = [stager.put(c) for c in chunks]
+    stager.ready_on()
+    torch.cuda.synchronize(card)
+    assert stager.copies == 200 and stager.bytes == sum(c.nbytes
+                                                         for c in chunks)
+    assert len(stager._rings) == 1
+    for c, d in zip(chunks, on_card):
+        assert d.device == card
+        assert np.array_equal(d.cpu().numpy(), c)
+
+
+@pytest.mark.cuda
+def test_cli_on_the_card_with_async_warmup(card):
+    """The CLI in a fresh process on the card, the staged warm-up on its
+    own thread (the default) while the CPI loop runs: the two threads'
+    first linear-algebra calls must not race (the runtime makes the first
+    one in its constructor)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = repo
+    proc = subprocess.run(
+        [sys.executable, "-m", "blah2_tpu_torch.runtime.cli", "--config",
+         os.path.join(repo, "config", "config-synthetic.yml"), "--cpis",
+         "12", "--no-api", "--staged-sample-every", "4"], cwd=repo, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("CPI time (ms)") == 12

@@ -1,6 +1,7 @@
 """Guards on the PyTorch port as a package: it imports neither JAX nor the
 JAX package, its entry points need a card unless told otherwise, and its
-host-side copies (config, FFT sizes) agree with the JAX package's."""
+host-side copies (config, FFT sizes, the runtime's host layers) agree with
+the JAX package's."""
 
 from __future__ import annotations
 
@@ -36,7 +37,11 @@ from blah2_tpu_torch.parallel import collectives, halo
 from blah2_tpu_torch.parallel.mesh import make_radar_mesh
 from blah2_tpu_torch.parallel.sharded import (ShardedCpiPipeline,
                                               calibrate_row_shard)
+from blah2_tpu_torch.runtime import cli, radar
+from blah2_tpu_torch.runtime.radar import RadarRuntime
+from blah2_tpu_torch.net.api import ApiServer
 pipe = CpiPipeline(Config(), device="cpu")
+RadarRuntime(Config(), device="cpu", staged_sample_every=0)
 pipeline_state_to_numpy(pipe)
 sharded = ShardedCpiPipeline(Config(), make_radar_mesh(
     1, 4, devices=["cpu"] * 4), halo_backend="pallas")
@@ -46,6 +51,42 @@ bad = sorted(m for m in sys.modules
              or m.startswith("blah2_tpu."))
 print("BAD=" + ",".join(bad))
 """
+
+
+#: The host layers the port keeps its own copies of: each equals its
+#: original in blah2_tpu/ but for the renames of ``_renamed``.
+HOST_COPIES = [
+    "constants.py", "utils/__init__.py", "utils/jsonfmt.py",
+    "data/__init__.py", "data/iq.py", "data/ddmap.py", "data/detection.py",
+    "data/track.py", "data/timing.py", "tracker/__init__.py",
+    "tracker/tracker.py", "native.py", "capture/__init__.py",
+    "capture/source.py", "capture/replay.py", "capture/drivers.py",
+    "capture/capture.py", "capture/synthetic.py",
+    "capture/vendor/__init__.py", "capture/vendor/hackrf.py",
+    "capture/vendor/rtlsdr.py", "capture/vendor/sdrplay.py",
+    "capture/vendor/uhd.py", "net/__init__.py", "net/socket.py",
+    "net/stash.py", "net/api.py"]
+
+
+def _renamed(text: str) -> str:
+    """A JAX-package source as the port's copy of it: module paths
+    ``blah2_tpu.`` and ``from blah2_tpu import`` name the port, and a
+    citation of the reference's C++ sources by an absolute checkout path
+    cites ``src/...`` as the rest of the port does."""
+    text = re.sub(r"(?<![\w.])blah2_tpu\.", "blah2_tpu_torch.", text)
+    text = re.sub(r"`/\w+/reference/src/", "`src/", text)
+    return re.sub(r"\bfrom blah2_tpu import\b", "from blah2_tpu_torch import",
+                  text)
+
+
+@pytest.mark.parametrize("rel", HOST_COPIES)
+def test_host_copy_equals_its_original(rel):
+    with open(os.path.join(REPO, "blah2_tpu", rel), encoding="utf-8") as f:
+        original = f.read()
+    with open(os.path.join(REPO, "blah2_tpu_torch", rel),
+              encoding="utf-8") as f:
+        copy = f.read()
+    assert copy == _renamed(original)
 
 
 def test_port_imports_no_jax_and_no_jax_package():

@@ -243,9 +243,14 @@ def test_pipeline_switches(scene):
         x.astype(np.complex64), y.astype(np.complex64))
     np.testing.assert_allclose(out.db_map.numpy(), np.asarray(jout.db_map),
                                atol=2e-3)
+    assert out.sub_spectra_db is None
     d["process"]["spectrum"] = {"nSub": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CpiPipeline(config_from_dict(d), device="cpu")
+    out = CpiPipeline(config_from_dict(d), device="cpu")(x, y)
+    jout = JaxPipeline(jax_config(d), use_pallas=False)(
+        x.astype(np.complex64), y.astype(np.complex64))
+    assert out.sub_spectra_db.shape == (2, out.spectrum_db.shape[0])
+    np.testing.assert_allclose(out.sub_spectra_db.numpy(),
+                               np.asarray(jout.sub_spectra_db), atol=2e-3)
 
 
 def test_cpu_pipeline_never_launches_the_kernel(scene):
