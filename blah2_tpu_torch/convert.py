@@ -7,12 +7,16 @@ delay and Doppler axes. In the port they are registered buffers of the
 stage modules, so ``CpiPipeline.state_dict()`` holds them, keyed by the same
 attribute paths as the JAX ``CpiPipeline`` (``ambiguity._doppler_dft``,
 ``fused_detector._scale``, ...; with ``process.spectrum.nSub`` > 1 the sub
-analyser's ``spectrum_sub._twiddle`` and ``spectrum_sub._perm``). Buffers the port derives for itself (lag
-and permutation indices) are not part of it. The sharded pipeline's
+analyser's ``spectrum_sub._twiddle`` and ``spectrum_sub._perm``; with
+``cfar: os`` the OS-CFAR multipliers and ranks ``cfar._alpha`` and
+``cfar._k_idx``; with ``filter: eca-b`` the edge window
+``clutter._edge_mask``). Buffers the port derives for itself (lag and
+permutation indices) are not part of it. The sharded pipeline's
 ``state_dict()`` adds its own derived constants under the JAX
 ``ShardedCpiPipeline``'s names: the padded Doppler operator ``_w_pad``, the
 padded pre-shift ramp ``_ramp_pad`` (where the Doppler window is off
-centre) and the padded fold twiddle ``_spec_tw_pad``.
+centre), the padded fold twiddle ``_spec_tw_pad``, the per-segment sub-CPI
+fold twiddles ``_sub_tw_pad`` (nSub > 1) and ECA-B's ``_eca_edge_mask``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Cell-averaging CFAR across delay, per Doppler row (counterpart of
-``blah2_tpu/dsp/cfar.py``).
+"""Cell-averaging and ordered-statistics CFAR across delay, per Doppler row
+(counterpart of ``blah2_tpu/dsp/cfar.py``).
 
 Parity with reference `src/process/detection/CfarDetector1D.{h,cpp}`:
   - CFAR runs across delay only, per Doppler row (`CfarDetector1D.h:4`);
@@ -65,6 +65,36 @@ def cfar_threshold_scale(pfa: float, n_guard: int, n_train: int,
     return np.where(cnt > 0, alpha / np.maximum(cnt, 1), np.inf)
 
 
+def os_cfar_alpha(pfa: float, n: int, k: int) -> float:
+    """OS-CFAR threshold multiplier α for train size ``n`` and order
+    statistic rank ``k`` (1-indexed, k ≤ n).
+
+    For an exponential (square-law-detected Rayleigh noise) background,
+    Pfa(α) = ∏_{i=0}^{k−1} (n−i)/(n−i+α), monotone decreasing in α
+    (Rohling 1983); solved by bisection in log space."""
+    if n <= 0:
+        return float("inf")
+    k = min(max(int(k), 1), int(n))
+    i = np.arange(k, dtype=np.float64)
+    log_pfa = np.log(float(pfa))
+
+    def f(alpha: float) -> float:
+        return float(np.sum(np.log(n - i) - np.log(n - i + alpha))) - log_pfa
+
+    lo, hi = 0.0, 1.0
+    while f(hi) > 0.0:
+        hi *= 2.0
+        if hi > 1e12:  # pfa ~ 0: unreachable threshold
+            return float("inf")
+    for _ in range(200):
+        mid = 0.5 * (lo + hi)
+        if f(mid) > 0.0:
+            lo = mid
+        else:
+            hi = mid
+    return 0.5 * (lo + hi)
+
+
 def extract_topk(flat_mask: torch.Tensor, n_cols: int, max_detections: int):
     """Fixed-capacity index extraction in row-major scan order, over the
     last dimension of ``flat_mask`` (leading dimensions batch).
@@ -82,7 +112,80 @@ def extract_topk(flat_mask: torch.Tensor, n_cols: int, max_detections: int):
     return idx // n_cols, idx % n_cols, valid, count
 
 
-class CfarDetector(nn.Module):
+class _CfarBase(nn.Module):
+    """What the CA and OS detectors share: the parameters, the geometry
+    masks and axes as buffers, the map's power and SNR, the train cells as
+    shifted slices, and the fixed-capacity extraction. A subclass gives
+    the threshold rule (``_hits``)."""
+
+    def __init__(self, pfa, n_guard, n_train, min_delay, min_doppler,
+                 delay_axis, doppler_axis, max_detections, real_dtype,
+                 device):
+        super().__init__()
+        self._device = resolve_device(device)
+        self.pfa = float(pfa)
+        self.n_guard = int(n_guard)
+        self.n_train = int(n_train)
+        self.min_delay = int(min_delay)
+        self.min_doppler = float(min_doppler)
+        self.max_detections = int(max_detections)
+        self.real_dtype = real_dtype
+
+        delay_axis = as_numpy(delay_axis)
+        doppler_axis = as_numpy(doppler_axis).astype(np.float64)
+        self.n_rows = len(doppler_axis)
+        self.n_cols = len(delay_axis)
+        self._buf("_row_ok", np.abs(doppler_axis) >= self.min_doppler)
+        self._buf("_col_ok", delay_axis >= self.min_delay)
+        self._buf("_delay_axis", delay_axis, torch.float32)
+        self._buf("_doppler_axis", doppler_axis, torch.float32)
+
+    def _buf(self, name, a, dtype=None):
+        self.register_buffer(name, torch.from_numpy(
+            np.ascontiguousarray(a)).to(self._device, dtype))
+
+    def _train_slices(self, power: torch.Tensor, fill: float):
+        """The 2·n_train train cells of every cell, as shifted slices of the
+        padded map; ``fill`` stands for out-of-map cells and for the left
+        train cell at k = 0 (the reference's k > 0 quirk)."""
+        g, t, nc = self.n_guard, self.n_train, self.n_cols
+        maxo = g + t
+        p_left = power.clone()
+        p_left[:, 0] = fill
+        pl = F.pad(p_left, (maxo, 0), value=fill)
+        pr = F.pad(power, (0, maxo), value=fill)
+        for o in range(g + 1, maxo + 1):
+            yield pl[:, maxo - o: maxo - o + nc]
+            yield pr[:, o: o + nc]
+
+    def _hits(self, power: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, z: torch.Tensor,
+                noise_power: torch.Tensor) -> CfarDetections:
+        """CFAR on a complex (n_rows, n_cols) delay-Doppler map, with the
+        scalar map noise power in dB."""
+        mag = torch.abs(z).to(self.real_dtype)
+        power = mag * mag
+        snr_db = 10.0 * torch.log10(mag) - noise_power.to(self.real_dtype)
+        detect = (self._hits(power)
+                  & self._row_ok[:, None] & self._col_ok[None, :])
+        row, col, valid, count = extract_topk(
+            detect.reshape(-1), self.n_cols, self.max_detections)
+        return CfarDetections(
+            row=row,
+            col=col,
+            delay=self._delay_axis[col],
+            doppler=self._doppler_axis[row],
+            snr=snr_db[row, col],
+            valid=valid,
+            count=count,
+        )
+
+
+class CfarDetector(_CfarBase):
+    """Cell-averaging CFAR: the threshold is α/N times the train sum."""
+
     def __init__(
         self,
         pfa: float,
@@ -96,85 +199,85 @@ class CfarDetector(nn.Module):
         real_dtype: torch.dtype = torch.float32,
         device=None,
     ):
-        super().__init__()
-        device = resolve_device(device)
-        self.pfa = float(pfa)
-        self.n_guard = int(n_guard)
-        self.n_train = int(n_train)
-        self.min_delay = int(min_delay)
-        self.min_doppler = float(min_doppler)
-        self.max_detections = int(max_detections)
-        self.real_dtype = real_dtype
-
-        delay_axis = as_numpy(delay_axis)
-        doppler_axis = as_numpy(doppler_axis).astype(np.float64)
-        self.n_rows = len(doppler_axis)
-        self.n_cols = len(delay_axis)
-
-        def buf(name, a, dtype=None):
-            self.register_buffer(name, torch.from_numpy(
-                np.ascontiguousarray(a)).to(device, dtype))
-
-        buf("_row_ok", np.abs(doppler_axis) >= self.min_doppler)
-        buf("_col_ok", delay_axis >= self.min_delay)
-        buf("_delay_axis", delay_axis, torch.float32)
-        buf("_doppler_axis", doppler_axis, torch.float32)
+        super().__init__(pfa, n_guard, n_train, min_delay, min_doppler,
+                         delay_axis, doppler_axis, max_detections,
+                         real_dtype, device)
         # alpha/cnt scales the train *sum*: threshold = alpha * sum/cnt.
-        buf("_thresh_scale", cfar_threshold_scale(
+        self._buf("_thresh_scale", cfar_threshold_scale(
             self.pfa, self.n_guard, self.n_train, self.n_cols), real_dtype)
 
-    def forward(self, z: torch.Tensor,
-                noise_power: torch.Tensor) -> CfarDetections:
-        """CFAR on a complex (n_rows, n_cols) delay-Doppler map, with the
-        scalar map noise power in dB."""
-        g, t = self.n_guard, self.n_train
-        nc = self.n_cols
-        maxo = g + t
-
-        mag = torch.abs(z).to(self.real_dtype)
-        power = mag * mag
-        snr_db = 10.0 * torch.log10(mag) - noise_power.to(self.real_dtype)
-
-        # Train sums via shifted slices of zero-padded maps.
-        p_left = power.clone()
-        p_left[:, 0] = 0.0  # left train cells require k > 0
-        pl = F.pad(p_left, (maxo, 0))
-        pr = F.pad(power, (0, maxo))
+    def _hits(self, power: torch.Tensor) -> torch.Tensor:
         train = torch.zeros_like(power)
-        for o in range(g + 1, maxo + 1):
-            train = train + pl[:, maxo - o: maxo - o + nc]
-            train = train + pr[:, o: o + nc]
+        for s in self._train_slices(power, 0.0):
+            train = train + s
+        return power > self._thresh_scale[None, :] * train
 
-        detect = ((power > self._thresh_scale[None, :] * train)
-                  & self._row_ok[:, None] & self._col_ok[None, :])
-        row, col, valid, count = extract_topk(
-            detect.reshape(-1), nc, self.max_detections)
-        return CfarDetections(
-            row=row,
-            col=col,
-            delay=self._delay_axis[col],
-            doppler=self._doppler_axis[row],
-            snr=snr_db[row, col],
-            valid=valid,
-            count=count,
-        )
+
+class OsCfarDetector(_CfarBase):
+    """Ordered-statistics CFAR across delay, per Doppler row.
+
+    The threshold is α · (the k-th smallest train-cell power) instead of
+    α · mean, which keeps a target inside another's train window from
+    masking it. Rank k = ⌈rank·N⌉ (Rohling's 3/4 by default) and α are
+    solved per column from the edge-shrunk train count N
+    (:func:`os_cfar_alpha`). The train windows are the CA detector's
+    shifted slices stacked on a trailing axis of 2·n_train and sorted
+    there; out-of-map cells and the k>0 left-train quirk cell are +inf, so
+    they sort last.
+    """
+
+    def __init__(
+        self,
+        pfa: float,
+        n_guard: int,
+        n_train: int,
+        min_delay: int,
+        min_doppler: float,
+        delay_axis,
+        doppler_axis,
+        max_detections: int = 128,
+        rank: float = 0.75,
+        real_dtype: torch.dtype = torch.float32,
+        device=None,
+    ):
+        self.rank = float(rank)
+        if not 0.0 < self.rank <= 1.0:
+            raise ValueError(f"OS-CFAR rank must be in (0, 1], got {rank}")
+        super().__init__(pfa, n_guard, n_train, min_delay, min_doppler,
+                         delay_axis, doppler_axis, max_detections,
+                         real_dtype, device)
+        cnt = cfar_train_count(self.n_guard, self.n_train, self.n_cols)
+        k = np.maximum(1, np.ceil(self.rank * cnt)).astype(np.int64)
+        self._buf("_k_idx", np.minimum(k - 1, 2 * self.n_train - 1),
+                  torch.int64)
+        # Solved in float64, cast to the map's real dtype.
+        self._buf("_alpha", np.asarray([
+            os_cfar_alpha(self.pfa, int(n), int(kk))
+            for n, kk in zip(cnt, k)]), real_dtype)
+
+    def _hits(self, power: torch.Tensor) -> torch.Tensor:
+        train = torch.sort(torch.stack(
+            list(self._train_slices(power, float("inf"))), dim=-1),
+            dim=-1).values
+        kth = torch.take_along_dim(
+            train, self._k_idx[None, :, None], dim=-1)[..., 0]
+        threshold = self._alpha[None, :] * kth
+        return (power > threshold) & torch.isfinite(threshold)
 
 
 def make_cfar(det_cfg, delay_axis, doppler_axis, max_detections: int = 128,
-              real_dtype: torch.dtype = torch.float32,
-              device=None) -> CfarDetector:
-    """CFAR factory by config: ``process.detection.cfar`` "ca" (the
-    reference algorithm); "os" is not ported yet."""
+              real_dtype: torch.dtype = torch.float32, device=None):
+    """CFAR factory by config: ``process.detection.cfar`` ∈ {"ca", "os"}
+    ("ca" is the reference algorithm)."""
     kind = (getattr(det_cfg, "cfar", "ca") or "ca").lower()
-    if kind in ("ca", "ca-cfar", "cacfar"):
-        return CfarDetector(
-            pfa=det_cfg.pfa, n_guard=det_cfg.n_guard, n_train=det_cfg.n_train,
-            min_delay=det_cfg.min_delay, min_doppler=det_cfg.min_doppler,
-            delay_axis=delay_axis, doppler_axis=doppler_axis,
-            max_detections=max_detections, real_dtype=real_dtype,
-            device=device)
+    common = dict(
+        pfa=det_cfg.pfa, n_guard=det_cfg.n_guard, n_train=det_cfg.n_train,
+        min_delay=det_cfg.min_delay, min_doppler=det_cfg.min_doppler,
+        delay_axis=delay_axis, doppler_axis=doppler_axis,
+        max_detections=max_detections, real_dtype=real_dtype, device=device)
     if kind in ("os", "os-cfar", "oscfar"):
-        raise NotImplementedError(
-            "OS-CFAR is not ported to blah2_tpu_torch yet "
-            "(ROADMAP.md queue 1: 'Alternative algorithms')")
+        return OsCfarDetector(rank=getattr(det_cfg, "os_rank", 0.75),
+                              **common)
+    if kind in ("ca", "ca-cfar", "cacfar"):
+        return CfarDetector(**common)
     raise ValueError(f"unknown process.detection.cfar: {kind!r}")

@@ -2,9 +2,10 @@
 ``blah2_tpu/dsp/pipeline.py``).
 
 One CPI runs: wire decode → spectrum (and sub-CPI spectra when
-``process.spectrum.nSub`` > 1) → Wiener-Hopf clutter filter →
-cross-ambiguity → fused detection (map metrics, CA-CFAR, centroid) →
-fixed-capacity extraction → peak interpolation. Every stage runs on
+``process.spectrum.nSub`` > 1) → clutter filter (Wiener-Hopf, ECA-B or
+NLMS) → cross-ambiguity → fused detection (map metrics, CA-CFAR, centroid)
+→ fixed-capacity extraction → peak interpolation. OS-CFAR runs the unfused
+chain (map metrics → OS-CFAR → centroid): the fused kernel computes CA. Every stage runs on
 ``device``; the caller receives small products (dB map, spectrum,
 fixed-capacity detections) as tensors there. ``call_staged`` runs the same
 CPI as four stages, each waited for, so that the runtime can time them
@@ -25,7 +26,7 @@ from blah2_tpu_torch.config import Config
 from blah2_tpu_torch.device import complex_of_parts, resolve_device
 from blah2_tpu_torch.dsp.ambiguity import AmbiguityProcessor, map_metrics
 from blah2_tpu_torch.dsp.centroid import CentroidFilter
-from blah2_tpu_torch.dsp.cfar import CfarDetections, make_cfar
+from blah2_tpu_torch.dsp.cfar import CfarDetections, CfarDetector, make_cfar
 from blah2_tpu_torch.dsp.clutter_eca import make_clutter_filter
 from blah2_tpu_torch.dsp.interpolate import PeakInterpolator
 from blah2_tpu_torch.dsp.spectrum import SpectrumAnalyser
@@ -65,7 +66,9 @@ class CpiPipeline(nn.Module):
     ``fused_detect``: "auto" takes the fused detector on a CUDA device (its
     CUDA kernel) and the unfused chain (map metrics → CFAR → centroid)
     elsewhere; True or False choose explicitly. On the CPU the fused
-    detector runs the kernel's plain twin.
+    detector runs the kernel's plain twin. The fused detector computes
+    CA-CFAR, so a config with ``cfar: os`` runs the unfused chain whatever
+    ``fused_detect`` says.
     """
 
     def __init__(
@@ -141,7 +144,7 @@ class CpiPipeline(nn.Module):
             self.interpolate = PeakInterpolator(
                 True, True, amb.doppler_resolution, amb.n_doppler_bins,
                 amb.n_delay_bins)
-            if self.fused_detect:
+            if self.fused_detect and isinstance(self.cfar, CfarDetector):
                 self.fused_detector = FusedDetector.from_config(
                     proc, amb, max_detections=max_detections, device=device)
 

@@ -23,6 +23,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from blah2_tpu_torch.device import resolve_device
+
 AXIS_NAMES = ("cpi", "pulse")
 
 
@@ -83,6 +85,19 @@ class RadarMesh:
     def __repr__(self) -> str:
         return (f"RadarMesh({self.shape['cpi']}x{self.shape['pulse']}, "
                 f"devices={[str(d) for d in self.devices]})")
+
+
+def rank_devices(n_ranks: int, device=None) -> List[torch.device]:
+    """Devices for ``n_ranks`` logical ranks: all on ``device`` when it is
+    the CPU or names a card; otherwise (``None`` or ``"cuda"``) the visible
+    cards filled in rank order, several ranks to a card when there are
+    fewer cards than ranks (a 1 × 4 mesh on one card). Raises with no card
+    unless the CPU is asked for."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return [dev] * n_ranks
+    per = -(-n_ranks // torch.cuda.device_count())
+    return [torch.device("cuda", r // per) for r in range(n_ranks)]
 
 
 def make_radar_mesh(

@@ -14,15 +14,23 @@ the lists. The layout is the JAX module's:
     right halo from the next rank, partial spectra psum'd over ``pulse``,
     the small Toeplitz/Cholesky solve replicated (computed once per device
     and cpi row: ranks on one device share it), the FIR apply local with an
-    (nb−1)-sample left halo (overlap-save);
+    (nb−1)-sample left halo (overlap-save). ECA-B solves every segment of a
+    rank's block locally, from (nb−1)-sample history and lookahead halos;
+    NLMS runs its block recursion per rank, warm-started over the previous
+    rank's last blocks (a halo), the ranks of one device as one batched
+    scan;
   - ambiguity: per-rank batched range FFTs; the Doppler stage multiplies
     each rank's pulse block by its column block of the shifted-DFT operator
     and reduces over ``pulse`` (psum_scatter of Doppler row blocks when
     row-sharded, else psum);
-  - spectrum: local fold per rank, (n_spectrum,) partials psum'd;
+  - spectrum: local fold per rank, (n_spectrum,) partials psum'd; sub-CPI
+    spectra (``process.spectrum.nSub`` > 1) the same with one masked fold
+    per segment, psum'd as a (k, n_spectrum) stack;
   - detection on the map gathered per CPI in rank order, outside the ranks.
     JAX lets GSPMD partition that per-row work; the gather computes the same
-    function.
+    function. The fused detector, when asked for, runs whatever the CFAR
+    kind, as the JAX module's ``use_pallas_detect`` does
+    (`blah2_tpu/parallel/sharded.py:669`): it computes CA-CFAR.
 
 Clutter correlations are linear (zero-extended), as in the JAX module: the
 sharded pipeline matches the single-device ``CpiPipeline`` in
@@ -42,11 +50,12 @@ import torch
 from torch import nn
 
 from blah2_tpu_torch.config import Config
-from blah2_tpu_torch.device import complex_of_parts
+from blah2_tpu_torch.device import complex_of_parts, real_dtype
 from blah2_tpu_torch.dsp.ambiguity import AmbiguityProcessor
 from blah2_tpu_torch.dsp.centroid import CentroidFilter
 from blah2_tpu_torch.dsp.cfar import CfarDetections, make_cfar
 from blah2_tpu_torch.dsp.clutter import solve_normal_equations
+from blah2_tpu_torch.dsp.clutter_eca import ecab_residual, edge_mask, nlms_scan
 from blah2_tpu_torch.dsp.hamming import segment_fft_size
 from blah2_tpu_torch.dsp.interpolate import PeakInterpolator
 from blah2_tpu_torch.dsp.pipeline import CpiOutputs
@@ -157,23 +166,44 @@ class ShardedCpiPipeline(nn.Module):
         # block and the (n_spectrum,) partials psum.
         self.register_buffer("_spec_tw_pad",
                              self.spectrum.twiddle_padded(self.n_pad))
-        if int(proc.spectrum.n_sub or 1) > 1:
-            raise NotImplementedError(
-                "process.spectrum.nSub > 1 in mesh mode is not ported to "
-                "blah2_tpu_torch yet (ROADMAP.md queue 1: 'The rest of "
-                "multi-device', mesh-mode nSub > 1)")
+        # Sub-CPI spectra (process.spectrum.nSub, the single-device
+        # pipeline's pinned bin geometry): one zero-padded fold twiddle row
+        # per segment (the zeros outside the segment are its mask), each
+        # folded per rank and psum'd.
+        self.spectrum_sub = None
+        self.n_spectrum_sub = k_sub = int(proc.spectrum.n_sub or 1)
+        if k_sub > 1:
+            n_seg = n // k_sub
+            if n_seg < 2 * self.spectrum.n_spectrum:
+                raise ValueError(
+                    f"process.spectrum.nSub={k_sub} leaves segments of "
+                    f"{n_seg} samples — need at least "
+                    f"2x{self.spectrum.n_spectrum} for the shared "
+                    f"spectrum-bin geometry")
+            self.spectrum_sub = SpectrumAnalyser(
+                n_seg, spectrum_bandwidth, cap.fc, dtype=dtype,
+                n_spectrum=self.spectrum.n_spectrum,
+                offset_even=self.spectrum.decimation % 2 == 0, device=device)
+            tw = self.spectrum_sub._twiddle.reshape(-1)
+            rows = torch.zeros((k_sub, self.n_pad), dtype=tw.dtype,
+                               device=device)
+            for s in range(k_sub):
+                rows[s, s * n_seg:s * n_seg + tw.shape[0]] = tw
+            self.register_buffer("_sub_tw_pad", rows)
+            self._sub_seg_len = n_seg
 
         self.clutter_enabled = proc.clutter.enable
         kind = (getattr(proc.clutter, "filter", "wiener") or "wiener").lower()
         kind = kind.replace("_", "-")
-        if kind in ("eca-b", "ecab", "eca", "nlms"):
-            self.clutter_kind = "nlms" if kind == "nlms" else "eca-b"
-            if self.clutter_enabled:
-                raise NotImplementedError(
-                    f"the sharded {self.clutter_kind} clutter filter is not "
-                    f"ported to blah2_tpu_torch yet (ROADMAP.md queue 1: "
-                    f"'The rest of multi-device', after 'Alternative "
-                    f"algorithms')")
+        if kind in ("eca-b", "ecab", "eca"):
+            self.clutter_kind = "eca-b"
+        elif kind == "nlms":
+            # The single-device canceller restarts its weights at every
+            # CPI; here they restart at every rank block, warm-started over
+            # the previous rank's last nlms_W blocks, so the rank enters
+            # converged. The divergence from the single-device filter is
+            # those restarts (`tests/test_sharded.py`, nlms drift tests).
+            self.clutter_kind = "nlms"
         else:
             self.clutter_kind = "wiener"
             if self.clutter_enabled and kind not in (
@@ -196,6 +226,52 @@ class ShardedCpiPipeline(nn.Module):
             self.nfft_seg = segment_fft_size(self.seg_len + self.nb - 1,
                                              device.type)
             self.diag_load = diag_load
+        if self.clutter_enabled and self.clutter_kind == "eca-b":
+            # Per-segment exact LS over segments of the padded CPI: nBatches
+            # rounded to the nearest divisor count of block_len per rank, so
+            # every segment's solve is rank-local. The segment grid
+            # (multiples of n_pad/(P·S)) differs from the single-device
+            # filter's ceil(n/B) grid, as in the JAX module.
+            nb = self.nb
+            want_local = max(1, round(proc.clutter.n_batches /
+                                      self.n_pulse_axis))
+            divisors = [k for k in range(1, self.block_len + 1)
+                        if self.block_len % k == 0
+                        and self.block_len // k > 2 * nb]
+            if not divisors:
+                raise ValueError(
+                    "no valid ECA-B segmentation: clutter lag window too "
+                    "large for the per-device block")
+            self.n_seg_eca = min(divisors, key=lambda k: abs(k - want_local))
+            self.seg_len_eca = self.block_len // self.n_seg_eca
+            self.n_batches_eca = self.n_seg_eca * self.n_pulse_axis
+            self.nfft_eca = segment_fft_size(
+                self.seg_len_eca + 2 * (nb - 1) + nb, device.type)
+            self.register_buffer("_eca_edge_mask", edge_mask(nb, device))
+            self.diag_load_eca = diag_load if diag_load > 0.0 else 1e-4
+        if self.clutter_enabled and self.clutter_kind == "nlms":
+            # NlmsClutterFilter's block geometry: L taps rounded up to a
+            # power of two, 2L-point FFTs, weights adapt once per L.
+            nb = self.nb
+            self.nlms_L = 1 << (nb - 1).bit_length()
+            self.nlms_M = 2 * self.nlms_L
+            if self.nlms_L > self.block_len:
+                raise ValueError(
+                    "NLMS block (next pow2 of the clutter lag window) "
+                    "exceeds the per-device block; reduce the pulse-axis "
+                    "size")
+            self.nlms_K = -(-self.block_len // self.nlms_L)
+            self.nlms_mu = float(getattr(proc.clutter, "mu", 0.1))
+            self.nlms_beta = 0.9
+            self.nlms_eps = 1e-6
+            # Warm-start replay over the previous rank's last W blocks: W
+            # covers the convergence time (about 1/mu blocks) when the
+            # block affords it.
+            self.nlms_W = max(0, min(round(2.0 / self.nlms_mu), 32,
+                                     self.block_len // self.nlms_L - 1))
+        # The ranks of one device run the NLMS recursion as one batched
+        # scan (False: each rank's in turn; the same arithmetic).
+        self.nlms_batch_ranks = True
 
         self.detection_enabled = proc.detection.enable
         self.fused_detector = None
@@ -239,23 +315,40 @@ class ShardedCpiPipeline(nn.Module):
             out.append(torch.cat([main, tails], dim=-1))
         return out
 
+    def _linear_shift(self, xs: Ranks) -> Ranks:
+        """xs[i] = x[i − delay_min] with zero extension at the CPI's ends;
+        the samples that cross a rank boundary come by halo (cid 2)."""
+        s = self.clutter_delay_min
+        if s < 0:
+            inc = self._shift(xs, -s, True, 2)
+            return [torch.cat([x[..., -s:], i], dim=-1)
+                    for x, i in zip(xs, inc)]
+        if s > 0:
+            inc = self._shift(xs, s, False, 2)
+            return [torch.cat([i, x[..., :-s]], dim=-1)
+                    for x, i in zip(xs, inc)]
+        return xs
+
+    def _grouped(self, fn, batch: bool, *inputs: Ranks) -> list:
+        """``fn`` on every rank's inputs: with ``batch``, once per device on
+        the inputs of its ranks stacked on a new leading dimension (one
+        launch of each op for the device's ranks), else once per rank.
+        Returns, per rank, ``fn``'s outputs."""
+        groups: dict = {}
+        for r, t in enumerate(inputs[0]):
+            groups.setdefault(t.device if batch else r, []).append(r)
+        out: list = [None] * len(inputs[0])
+        for ranks in groups.values():
+            res = fn(*[torch.stack([v[r] for r in ranks]) for v in inputs])
+            for i, r in enumerate(ranks):
+                out[r] = tuple(t[i] for t in res)
+        return out
+
     def _clutter_block(self, xs: Ranks, ys: Ranks):
         """Per-rank Wiener-Hopf: (filtered y, ok) per rank."""
         mesh = self.mesh
         nb, f = self.nb, self.nfft_seg
-        s = self.clutter_delay_min
-
-        # Linear shift: xs[i] = x[i − s] with zero extension at the ends.
-        if s < 0:
-            inc = self._shift(xs, -s, True, 2)
-            xs_loc = [torch.cat([x[..., -s:], i], dim=-1)
-                      for x, i in zip(xs, inc)]
-        elif s > 0:
-            inc = self._shift(xs, s, False, 2)
-            xs_loc = [torch.cat([i, x[..., :-s]], dim=-1)
-                      for x, i in zip(xs, inc)]
-        else:
-            xs_loc = xs
+        xs_loc = self._linear_shift(xs)
 
         xs_ext = self._segments_right_halo(xs_loc, cid=0)
         y_ext = self._segments_right_halo(ys, cid=1)
@@ -301,6 +394,98 @@ class ShardedCpiPipeline(nn.Module):
             out.append(torch.where(ok[:, None], y - filt, y))
         return out, oks
 
+    def _clutter_block_ecab(self, xs: Ranks, ys: Ranks):
+        """Per-rank ECA-B (the sharded form of ``EcaBFilter``): every
+        segment of a rank's block is solved locally; only the (nb−1)-sample
+        history (cid 1) and lookahead (cid 0) halos cross ranks. ``ok`` is
+        the psum of the ranks' failures over ``pulse``, as in JAX."""
+        nb, S, L = self.nb, self.n_seg_eca, self.seg_len_eca
+        h = nb - 1
+        xs_loc = self._linear_shift(xs)
+        halo_next = self._shift(xs_loc, h, True, 0)
+        halo_prev = self._shift(xs_loc, h, False, 1)
+        exts, segs, ybs = [], [], []
+        for x, y, nxt, prv in zip(xs_loc, ys, halo_next, halo_prev):
+            main = x.reshape(x.shape[0], S, L)
+            tails, heads = nxt[:, None], prv[:, None]
+            if S > 1:
+                tails = torch.cat([main[:, 1:, :h], tails], dim=1)
+                heads = torch.cat([heads, main[:, :-1, L - h:]], dim=1)
+            exts.append(torch.cat([heads, main, tails], dim=-1))
+            segs.append(main)
+            ybs.append(y.reshape(y.shape[0], S, L))
+
+        def solve(ext, seg, yb):
+            res, ok = ecab_residual(
+                ext, seg, yb, nb, self.nfft_eca, self.diag_load_eca,
+                self._const("_eca_edge_mask", ext.device))
+            return res.reshape(res.shape[:-2] + (S * L,)), ok.all(-1)
+
+        out = self._grouped(solve, True, exts, segs, ybs)
+        fails = psum([(~ok).to(torch.int32) for _, ok in out], self.mesh,
+                     "pulse")
+        return [y2 for y2, _ in out], [f == 0 for f in fails]
+
+    def _clutter_block_nlms(self, xs: Ranks, ys: Ranks):
+        """Per-rank block NLMS (the rank-local form of
+        ``NlmsClutterFilter``, gradient constraint on). The weights restart
+        at each rank and are warm-started by replaying the previous rank's
+        last ``nlms_W`` blocks, which arrive by halo (cids 3 and 4) with the
+        first block's overlap-save history; rank 0 replays zeros, a no-op,
+        like the single-device CPI start. The chains are independent, so
+        the ranks of one device run as one scan (``nlms_batch_ranks``)."""
+        L, M, K, W = self.nlms_L, self.nlms_M, self.nlms_K, self.nlms_W
+        n, blk = self.n_samples, self.block_len
+        xs_loc = self._linear_shift(xs)
+        halo_x = self._shift(xs_loc, (W + 1) * L, False, 3)
+        halo_y = self._shift(ys, W * L, False, 4) if W > 0 else None
+        pad = K * L - blk
+        inputs = {"X": [], "yk": [], "Xw": [], "yw": []}
+        for r, (x, y, hx) in enumerate(zip(xs_loc, ys, halo_x)):
+            b = x.shape[0]
+            body = torch.nn.functional.pad(x, (0, pad))
+            lead = torch.cat([hx[:, -L:], body[:, :-L]], dim=-1)
+            inputs["X"].append(torch.fft.fft(torch.cat(
+                [lead.reshape(b, K, L), body.reshape(b, K, L)], dim=-1),
+                dim=-1))
+            inputs["yk"].append(torch.nn.functional.pad(
+                y, (0, pad)).reshape(b, K, L))
+            if W > 0:
+                inputs["Xw"].append(torch.fft.fft(torch.cat(
+                    [hx[:, :-L].reshape(b, W, L),
+                     hx[:, L:].reshape(b, W, L)], dim=-1), dim=-1))
+                inputs["yw"].append(halo_y[r].reshape(b, W, L))
+        rd = real_dtype(self.dtype)
+        consts = (self.nlms_mu, self.nlms_beta, self.nlms_eps)
+
+        def scan(X, yk, *warm):
+            w = X.new_zeros(X.shape[:-2] + (M,))
+            # The power starts at eps: the denominator at 2·eps.
+            d = torch.full(X.shape[:-2] + (M,), 2.0 * self.nlms_eps,
+                           dtype=rd, device=X.device)
+            if warm:
+                # The replay's errors are discarded; only the converged
+                # (w, d) carry into the rank's own blocks.
+                _, w, d = nlms_scan(warm[0], warm[1], w, d, *consts)
+            err, _, _ = nlms_scan(X, yk, w, d, *consts)
+            return (err.reshape(err.shape[:-2] + (K * L,))[..., :blk],)
+
+        names = ("X", "yk", "Xw", "yw") if W > 0 else ("X", "yk")
+        out = self._grouped(scan, self.nlms_batch_ranks,
+                            *[inputs[k] for k in names])
+        # The CPI's pad region stays zero (the other filters output w·xs = 0
+        # there; NLMS's −ŷ is not zero where a block straddles the edge).
+        y2 = []
+        for r, (e,) in enumerate(out):
+            start = self.mesh.axis_index(r, "pulse") * blk
+            keep = max(0, min(blk, n - start))
+            if keep < blk:
+                e = torch.cat([e[:, :keep], e.new_zeros(
+                    (e.shape[0], blk - keep))], dim=-1)
+            y2.append(e)
+        return y2, [torch.ones(y.shape[0], dtype=torch.bool, device=y.device)
+                    for y in ys]
+
     def _ambiguity_block(self, xs: Ranks, ys: Ranks) -> Ranks:
         """Per-rank range and Doppler stages, reduced over pulse: the full
         map (psum) or the rank's Doppler row block (psum_scatter)."""
@@ -334,7 +519,10 @@ class ShardedCpiPipeline(nn.Module):
         xs = [complex_of_parts(p[..., 0], p[..., 1], self.dtype) for p in xbp]
         ys = [complex_of_parts(p[..., 0], p[..., 1], self.dtype) for p in ybp]
         if self.clutter_enabled:
-            ys, oks = self._clutter_block(xs, ys)
+            block = {"eca-b": self._clutter_block_ecab,
+                     "nlms": self._clutter_block_nlms}.get(
+                         self.clutter_kind, self._clutter_block)
+            ys, oks = block(xs, ys)
         else:
             oks = [torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
                    for x in xs]
@@ -344,10 +532,22 @@ class ShardedCpiPipeline(nn.Module):
                 x, mesh.axis_index(r, "pulse") * self.block_len,
                 self._const("_spec_tw_pad", x.device))
             for r, x in enumerate(xs)], mesh, "pulse")
+        subs = None
+        if self.spectrum_sub is not None:
+            seg = self._sub_seg_len
+            subs = []
+            for r, x in enumerate(xs):
+                off = mesh.axis_index(r, "pulse") * self.block_len
+                tw = self._const("_sub_tw_pad", x.device)
+                subs.append(torch.stack([
+                    self.spectrum_sub.fold_partial(
+                        x, off, tw[s], bucket_origin=s * seg)
+                    for s in range(self.n_spectrum_sub)], dim=1))
+            subs = psum(subs, mesh, "pulse")
 
         # Gather per cpi row, in rank order, onto rank 0's device.
         nd = self.ambiguity.n_doppler_bins
-        z_rows, ok_rows, fold_rows = [], [], []
+        z_rows, ok_rows, fold_rows, sub_rows = [], [], [], []
         for group in mesh.groups("pulse"):
             if self._row_shard:
                 z = torch.cat([zs[r].to(home) for r in group], dim=1)[:, :nd]
@@ -356,14 +556,20 @@ class ShardedCpiPipeline(nn.Module):
             z_rows.append(z)
             ok_rows.append(oks[group[0]].to(home))
             fold_rows.append(folds[group[0]].to(home))
+            if subs is not None:
+                sub_rows.append(subs[group[0]].to(home))
         z = torch.cat(z_rows)
         clutter_ok = torch.cat(ok_rows)
         spec_db = SpectrumAnalyser.to_db(
             self.spectrum.finish(torch.cat(fold_rows)))
+        sub_db = None
+        if subs is not None:
+            sub_db = SpectrumAnalyser.to_db(
+                self.spectrum_sub.finish(torch.cat(sub_rows)))
         db, noise, max_power, det = self._detect(z)
         return CpiOutputs(db_map=db, noise_power=noise, max_power=max_power,
                           spectrum_db=spec_db, clutter_ok=clutter_ok,
-                          detections=det)
+                          detections=det, sub_spectra_db=sub_db)
 
     def _detect(self, z: torch.Tensor):
         """Map metrics and detections of the (B, nr, nc) batch."""

@@ -5,8 +5,12 @@ Mirrors the reference binary's interface ``blah2 -c config.yml``
 (`src/blah2.cpp:387-436`), plus flags for the port: the device, CPI count
 limits, in-process vs TCP API wiring, and a web root for the display layer.
 The runtime runs on the card unless ``--device cpu`` asks for the host; with
-no card it exits non-zero. Mesh mode and multi-process runs are not ported:
-their flags are parsed and refused (ROADMAP.md queue 1 item 4).
+no card it exits non-zero. ``--mesh CPIxPULSE`` runs the sharded pipeline
+over that many logical ranks in this process: on the CPU with ``--device
+cpu``, else on the visible cards in rank order, several ranks to a card
+when there are fewer cards than ranks (``--mesh 1x4`` runs on one card).
+Multi-process runs are not ported: their flags are parsed and refused
+(ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -66,16 +70,20 @@ def main(argv=None) -> int:
                         help="stream each CPI to the card in this many "
                              "blocks as capture delivers them (default: "
                              "auto)")
-    # Mesh mode and multi-process runs: parsed so that a command line of
-    # the JAX runtime is understood, and refused (not ported).
     parser.add_argument("--mesh", default=None, metavar="CPIxPULSE",
-                        help="not ported: ROADMAP.md queue 1 item 4")
-    parser.add_argument("--halo-backend", default=None,
+                        help="run the sharded pipeline on a (cpi, pulse) "
+                             "mesh of logical ranks, e.g. 1x4 (one card "
+                             "holds several ranks)")
+    parser.add_argument("--halo-backend", default="ppermute",
                         choices=("ppermute", "pallas"),
-                        help="not ported: ROADMAP.md queue 1 item 4")
-    parser.add_argument("--row-shard", default=None,
+                        help="overlap-save halo exchange in mesh mode "
+                             "(pallas: the CUDA halo kernel on a card)")
+    parser.add_argument("--row-shard", default="auto",
                         choices=("auto", "on", "off", "calibrate"),
-                        help="not ported: ROADMAP.md queue 1 item 4")
+                        help="mesh-mode Doppler-output layout (calibrate: "
+                             "time both on the mesh and keep the faster)")
+    # Multi-process runs: parsed so that a command line of the JAX runtime
+    # is understood, and refused (not ported).
     parser.add_argument("--coordinator", default=None,
                         help="not ported: ROADMAP.md queue 1 item 4")
     parser.add_argument("--num-processes", type=int, default=None,
@@ -88,8 +96,7 @@ def main(argv=None) -> int:
     from blah2_tpu_torch.runtime.radar import MESH_NOT_PORTED
 
     refused = [flag for flag, value in (
-        ("--mesh", args.mesh), ("--halo-backend", args.halo_backend),
-        ("--row-shard", args.row_shard), ("--coordinator", args.coordinator),
+        ("--coordinator", args.coordinator),
         ("--num-processes", args.num_processes),
         ("--process-id", args.process_id)) if value is not None]
     if refused:
@@ -99,8 +106,20 @@ def main(argv=None) -> int:
 
     from blah2_tpu_torch.device import resolve_device
 
+    mesh = None
     try:
         device = resolve_device(args.device)
+        if args.mesh:
+            from blah2_tpu_torch.parallel.mesh import RadarMesh, rank_devices
+
+            try:
+                n_cpi, n_pulse = (int(v) for v in
+                                  args.mesh.lower().split("x"))
+            except ValueError:
+                parser.error(f"--mesh must look like 2x4, got {args.mesh!r}")
+            mesh = RadarMesh(n_cpi, n_pulse,
+                             rank_devices(n_cpi * n_pulse, args.device))
+            device = mesh.devices[0]
     except RuntimeError as e:
         print(e, file=sys.stderr)
         return 2
@@ -126,6 +145,9 @@ def main(argv=None) -> int:
                            ingest_chunks=args.ingest_chunks,
                            defer_fetch=not args.no_defer_fetch,
                            recycle_every_cpis=args.transport_recycle,
+                           mesh=mesh, halo_backend=args.halo_backend,
+                           row_shard={"on": True, "off": False}.get(
+                               args.row_shard, args.row_shard),
                            device=device)
     runtime.install_signal_handlers()
     runtime.start_capture()

@@ -12,8 +12,10 @@ single-device pipeline's entry points, one CPI with sub-CPI spectra, the
 radar runtime on a replay of the default config (chunked pinned ingest,
 deferred fetch, staged samples), then the default config through the
 sharded pipeline on 1 x 4 and 2 x 2 meshes of logical ranks on the one
-card, times the paths with CUDA events and the profiler, and prints as its
-last line ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
+card, times the paths with CUDA events and the profiler; then the
+alternative algorithms (ECA-B, NLMS, OS-CFAR) on the single-device path,
+ECA-B, NLMS and nSub 4 on the sharded path, and the runtime in mesh mode,
+and prints as its last line ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
 exits non-zero and prints no result. It imports nothing of the JAX package.
 """
 
@@ -70,13 +72,62 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def event_times(fn, n, warmup):
+    """Per-call ms of ``fn()`` by CUDA events, after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"median": statistics.median(times), "min": min(times),
+            "max": max(times)}
+
+
+# Profiled windows a check may take before the profiler's trace must hold
+# every launch the wrappers made (see profiled_whole).
+PROFILE_TRIES = 3
+
+
+def shortfall(seen, want, what):
+    """[message] where the profiler's trace saw ``seen`` of the ``want``
+    launches (or copies) the wrappers made, else []."""
+    return [] if seen == want else [
+        f"the profiler saw {seen} {what}, the wrappers made {want}"]
+
+
+def profiled_whole(window, what):
+    """``window()`` profiles one window and returns (result, shortfalls),
+    the shortfalls as messages. A window whose trace lacks a record is
+    profiled again, up to PROFILE_TRIES windows in all, and the check
+    fails after that: in whole runs of this script the trace has lacked a
+    record now and then (4 of 50 halo launches once; PERF.md, Open
+    questions)."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        result, short = window()
+        if not short:
+            return result
+        print(f"note: {what}, profiled window {attempt} of {PROFILE_TRIES}: "
+              f"{'; '.join(short)}")
+    check(False, f"{what}: {'; '.join(short)}, in each of {PROFILE_TRIES} "
+          f"profiled windows")
+
+
 def device_profile(fn, n):
     """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler):
     {kernel name: (total us, launches)}, read from the profiler's trace of
     device activity. (In whole runs of this script the profiler's
     ``events()`` listed fewer halo launches than the wrapper made, 17 of 20
-    and 31 of 50; alone it listed all, and the trace has listed all so
-    far. Why is not known.)"""
+    and 31 of 50, and the trace 46 of 50 once; alone it listed all. Why is
+    not known; the checks that read a trace go through profiled_whole.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -442,19 +493,10 @@ def phase_timing(pipe, packed, card):
 
     from blah2_tpu_torch.ops.detect import detect, detect_plain
 
-    for _ in range(3):
-        pipe.call_quad12(packed)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(20):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = pipe.call_quad12(packed)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    cpis = 20
+    times = event_times(lambda: pipe.call_quad12(packed), cpis, 3)
+    out = pipe.call_quad12(packed)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
 
@@ -496,9 +538,9 @@ def phase_timing(pipe, packed, card):
     bound_b = bytes_c64 / HBM_BYTES_PER_S * 1e3
     bound_o = ops / F32_OPS_PER_S * 1e3
     timing = {
-        "cpi_ms_median": statistics.median(times),
-        "cpi_ms_min": min(times), "cpi_ms_max": max(times),
-        "cpis": len(times), "peak_mib": peak,
+        "cpi_ms_median": times["median"],
+        "cpi_ms_min": times["min"], "cpi_ms_max": times["max"],
+        "cpis": cpis, "peak_mib": peak,
         "detect_ms": [kern_a, kern_b], "detect_plain_ms": [plain_a, plain_b],
         "detect_old_form_ms": [old_a, old_b],
         "detect_device_ms": sum(t for t, _ in prof_new.values()) / n / 1e3,
@@ -530,17 +572,21 @@ def phase_profile(pipe, packed, cpi_ms):
     for _ in range(3):
         pipe.call_quad12(packed)
     torch.cuda.synchronize()
-    calls = detect.launches
-    by_name = device_profile(lambda: pipe.call_quad12(packed), n)
-    calls = detect.launches - calls
+
+    def window():
+        calls = detect.launches
+        by_name = device_profile(lambda: pipe.call_quad12(packed), n)
+        calls = detect.launches - calls
+        check(calls == n, f"{calls} detect calls in {n} CPIs")
+        # Kernel launches a detect call makes: the kernels named detect_*
+        # the profiler saw, one a call.
+        seen = sum(c for k, (_, c) in by_name.items() if "detect_" in k)
+        return (by_name, seen / calls), shortfall(
+            seen, calls, "detect launches (one a call)")
+
+    by_name, per_call = profiled_whole(window, "profile")
     busy_ms = sum(t for t, _ in by_name.values()) / n / 1e3
     detect_us = sum(t for k, (t, _) in by_name.items() if "detect_" in k) / n
-    # Kernel launches a detect call makes: the kernels named detect_* the
-    # profiler saw, over the wrapper's calls in the window.
-    per_call = sum(c for k, (_, c) in by_name.items() if "detect_" in k) \
-        / max(calls, 1)
-    check(calls == n and per_call == 1,
-          f"{calls} detect calls in {n} CPIs, {per_call} launches a call")
     prof_out = {
         "device_busy_ms_per_cpi": busy_ms,
         "idle_share": (1.0 - busy_ms / cpi_ms) if busy_ms else None,
@@ -789,37 +835,35 @@ def phase_sharded_timing(dev, root, card):
                             use_fused_detect=True)
     planes = sp.shard_inputs(quads[:, 0] + 1j * quads[:, 1],
                              quads[:, 2] + 1j * quads[:, 3])
-    for _ in range(3):
-        sp(*planes)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(20):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = sp(*planes)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    cpis = 20
+    times = event_times(lambda: sp(*planes), cpis, 3)
+    out = sp(*planes)
+    torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
 
     # The main path: counts at 0 just before, read just after; its shifts
     # from the mesh's collective log.
     n = 5
-    halo_permute.launches = 0
-    with count_bytes(mesh) as ops:
-        by_name = device_profile(lambda: sp(*planes), n)
-    launches = halo_permute.launches
-    shifts = sum(op.kind == "permute" for op in ops)
+
+    def window():
+        halo_permute.launches = 0
+        with count_bytes(mesh) as ops:
+            by_name = device_profile(lambda: sp(*planes), n)
+        launches = halo_permute.launches
+        shifts = sum(op.kind == "permute" for op in ops)
+        # Four shifts a step, one launch each on the one card.
+        check(launches == shifts == 4 * n,
+              f"{launches} halo launches and {shifts} shifts in {n} CPIs")
+        halo_n = sum(c for k, (_, c) in by_name.items()
+                     if "halo_permute" in k)
+        return (by_name, shifts, halo_n), shortfall(halo_n, launches,
+                                                    "halo launches")
+
+    by_name, shifts, halo_n = profiled_whole(window, "sharded timing")
     busy_ms = sum(t for t, _ in by_name.values()) / n / 1e3
     halo_us = sum(t for k, (t, _) in by_name.items() if "halo_permute" in k)
-    halo_n = sum(c for k, (_, c) in by_name.items() if "halo_permute" in k)
-    # Four shifts a step, one launch each on the one card.
-    check(halo_n == launches == shifts == 4 * n,
-          f"{halo_n} halo kernels, {launches} launches and {shifts} shifts "
-          f"in {n} CPIs")
-    median = statistics.median(times)
+    median = times["median"]
 
     # The main path's largest shift: 409 complex64 samples from the head
     # of each rank's (1, block_len) block, the last rank zero-filled.
@@ -856,19 +900,22 @@ def phase_sharded_timing(dev, root, card):
     plain_b = cuda_ms(plain, 200)
     m = 50
     prof_lib = device_profile(library, m)
-    prof_kern = device_profile(kernel, m)
+
+    def shift_window():
+        prof = device_profile(kernel, m)
+        return prof, shortfall(sum(c for _, c in prof.values()), m,
+                               "kernels of the masked shift (one a call)")
+
+    prof_kern = profiled_whole(shift_window, "masked shift")
     word = halo_permute.error()
     check(word == 0, f"halo kernel error word {word}")
-    check(sum(c for _, c in prof_kern.values()) == m,
-          f"the masked shift made {sum(c for _, c in prof_kern.values())} "
-          f"launches in {m} calls")
     # Each input read once and each output written once: the three ranks
     # that send, the four that receive (the edge's zeros).
     payload = count * xs[0].element_size()
     halo_bytes = (sum(not e for e in edge) + mesh.size) * payload
     timing = {
-        "mesh": "1x4", "cpi_ms_median": median, "cpi_ms_min": min(times),
-        "cpi_ms_max": max(times), "cpis": len(times), "peak_mib": peak,
+        "mesh": "1x4", "cpi_ms_median": median, "cpi_ms_min": times["min"],
+        "cpi_ms_max": times["max"], "cpis": cpis, "peak_mib": peak,
         "device_busy_ms_per_cpi": busy_ms,
         "idle_share": 1.0 - busy_ms / median,
         "kernels_per_cpi": sum(c for _, c in by_name.values()) / n,
@@ -981,6 +1028,30 @@ def overlap_us(a, b, intervals):
                      if u < b and v > a])
 
 
+def trace_facts(trace):
+    """What phase_runtime reads from a profiled run's trace: the kernels,
+    the detect kernels among them and their (compute) streams, the HtoD
+    copies and those off the compute stream (the chunk copies), the DtoH
+    copies, how many chunk copies ran on after their runtime call
+    returned, and the intervals of every copy and memset."""
+    kern = trace["kernel"]
+    compute = {k["args"].get("stream") for k in kern if "detect_" in k["name"]}
+    h2d = [m for m in trace["gpu_memcpy"] if "HtoD" in m["name"]]
+    copies = [m for m in h2d if m["args"].get("stream") not in compute]
+    calls = {c["args"].get("correlation"): c for c in trace["cuda_runtime"]}
+    ahead = sum(
+        1 for m in copies
+        if (c := calls.get(m["args"].get("correlation"))) is not None
+        and m["ts"] + m["dur"] > c["ts"] + c["dur"])
+    return {
+        "kern": kern, "compute": compute, "h2d": h2d, "copies": copies,
+        "d2h": [m for m in trace["gpu_memcpy"] if "DtoH" in m["name"]],
+        "ahead": ahead,
+        "prof_detect": sum("detect_" in k["name"] for k in kern),
+        "transfers": [(m["ts"], m["ts"] + m["dur"]) for m in
+                      trace["gpu_memcpy"] + trace["gpu_memset"]]}
+
+
 def phase_runtime(dev, root, card):
     """The port's RadarRuntime on the card at the default config: an
     unpaced replay of int16 quads (three seeded CPIs of default_scene in the
@@ -1041,21 +1112,44 @@ def phase_runtime(dev, root, card):
         check((rt.buffer1.dropped, rt.buffer2.dropped) == (0, 0),
               "the rings dropped samples")
 
-        # The profiled run.
-        rt2 = runtime_for(cfg, dev)
-        rt2.start_capture()
-        torch.cuda.synchronize()
-        # Device activity and the CUDA runtime calls only: the host's
-        # operators are not read, and leaving them out keeps the window
-        # near the unprofiled run.
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t_p = time.perf_counter()
-            calls2 = detect_mod.detect.launches
-            run_bounded(rt2, RUNTIME_PROFILED_CPIS, 300.0)
+        # The profiled run, again where its trace falls short.
+        def window():
+            rt2 = runtime_for(cfg, dev)
+            rt2.start_capture()
             torch.cuda.synchronize()
-            wall2_ms = (time.perf_counter() - t_p) * 1e3
-            calls2 = detect_mod.detect.launches - calls2
-        trace = trace_events(prof)
+            # Device activity and the CUDA runtime calls only: the host's
+            # operators are not read, and leaving them out keeps the window
+            # near the unprofiled run.
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t_p = time.perf_counter()
+                calls2 = detect_mod.detect.launches
+                run_bounded(rt2, RUNTIME_PROFILED_CPIS, 300.0)
+                torch.cuda.synchronize()
+                wall2_ms = (time.perf_counter() - t_p) * 1e3
+                calls2 = detect_mod.detect.launches - calls2
+            # The detect kernel: once per fused CPI and staged sample, and
+            # once in the staged warm-up.
+            want2 = RUNTIME_PROFILED_CPIS + 1
+            check(calls2 == want2, f"profiled run: {calls2} detect launches, "
+                  f"want {want2}")
+            facts = trace_facts(trace_events(prof))
+            copies = facts["copies"]
+            # The chunk copies: 16 a CPI (8 chunks x 2 channels), from
+            # pinned memory, on a stream of their own, under way while the
+            # host goes on. A copy that waited for itself ends before its
+            # call returns; in sound runs 127 or 128 of 128 ran on after
+            # theirs, and 11 of 128 in one whose host was slow (PERF.md,
+            # Findings), so a window under half is profiled again.
+            short = shortfall(facts["prof_detect"], calls2,
+                              "detect launches") + shortfall(
+                len(copies), 16 * RUNTIME_PROFILED_CPIS,
+                f"chunk copies off the compute stream {facts['compute']}")
+            if facts["ahead"] < len(copies) // 2:
+                short.append(f"only {facts['ahead']} of {len(copies)} chunk "
+                             f"copies ran on after their call returned")
+            return (facts, wall2_ms), short
+
+        facts, wall2_ms = profiled_whole(window, "runtime")
 
     n = RUNTIME_CPIS
     staged = [j for j in range(n) if j % SAMPLE_EVERY == 0]
@@ -1101,24 +1195,16 @@ def phase_runtime(dev, root, card):
     for name, (lim, _) in DEEP_LIMITS_DB.items():
         check(worst[name] <= lim, f"staged and fused maps differ {worst}")
 
-    kern = trace["kernel"]
-    prof_detect = sum("detect_" in k["name"] for k in kern)
-    compute = {k["args"].get("stream") for k in kern if "detect_" in k["name"]}
-    h2d = [m for m in trace["gpu_memcpy"] if "HtoD" in m["name"]]
-    copies = [m for m in h2d if m["args"].get("stream") not in compute]
-    d2h = [m for m in trace["gpu_memcpy"] if "DtoH" in m["name"]]
-    calls = {c["args"].get("correlation"): c for c in trace["cuda_runtime"]}
-    ahead = sum(
-        1 for m in copies
-        if (c := calls.get(m["args"].get("correlation"))) is not None
-        and m["ts"] + m["dur"] > c["ts"] + c["dur"])
+    kern, copies, h2d, d2h, ahead, prof_detect = (
+        facts[k] for k in ("kern", "copies", "h2d", "d2h", "ahead",
+                           "prof_detect"))
+    check(all("Pinned" in m["name"] for m in copies),
+          f"pageable chunk copies: {sorted({m['name'] for m in copies})}")
     kintervals = [(k["ts"], k["ts"] + k["dur"]) for k in kern]
     copy_us = sum(m["dur"] for m in copies) or float("nan")
     over_us = sum(overlap_us(m["ts"], m["ts"] + m["dur"], kintervals)
                   for m in copies)
-    busy_us = union_us(kintervals + [
-        (m["ts"], m["ts"] + m["dur"])
-        for m in trace["gpu_memcpy"] + trace["gpu_memset"]])
+    busy_us = union_us(kintervals + facts["transfers"])
 
     def stats(key):
         vals = [d[key] for d in docs]
@@ -1156,24 +1242,10 @@ def phase_runtime(dev, root, card):
     print("runtime " + json.dumps(line))
 
     # The detect kernel: once per fused CPI and staged sample, and once in
-    # the staged warm-up, by the counter and by the profiler.
+    # the staged warm-up.
     want = n + 1
     check(launches == want, f"{launches} detect launches in {n} CPIs, "
           f"want {want}")
-    want2 = RUNTIME_PROFILED_CPIS + 1
-    check(prof_detect == calls2 == want2,
-          f"profiled run: {prof_detect} detect kernels, {calls2} launches, "
-          f"want {want2}")
-    # The chunk copies: 16 a CPI (8 chunks x 2 channels), from pinned
-    # memory, on a stream of their own, under way while the host goes on.
-    check(len(copies) == 16 * RUNTIME_PROFILED_CPIS,
-          f"{len(copies)} copies off the compute stream {compute} for "
-          f"{RUNTIME_PROFILED_CPIS} CPIs ({len(h2d)} HtoD in all)")
-    check(all("Pinned" in m["name"] for m in copies),
-          f"pageable chunk copies: {sorted({m['name'] for m in copies})}")
-    check(ahead >= len(copies) // 2,
-          f"only {ahead} of {len(copies)} chunk copies ran on after their "
-          f"call returned")
     return launches, line
 
 
@@ -1222,6 +1294,405 @@ def phase_nsub(dev, root):
     return err
 
 
+# The alternative algorithms at the default config: (stage, settings).
+ALTERNATIVES = {
+    "eca-b": ("clutter", {"filter": "eca-b", "n_batches": 8}),
+    "nlms": ("clutter", {"filter": "nlms", "mu": 0.1}),
+    "os": ("detection", {"cfar": "os", "os_rank": 0.75}),
+}
+# The sharded path's: the two clutter filters, and sub-CPI spectra.
+SHARDED_ALTERNATIVES = {
+    **{k: ALTERNATIVES[k] for k in ("eca-b", "nlms")},
+    "nsub4": ("spectrum", {"n_sub": 4}),
+}
+# Limits in dB of each alternative's complex64 map on the card against its
+# complex128 map on the card, per class of cells (see class_errors): about
+# twice the readings of the first chip run (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md, Findings).
+ALT_LIMITS_DB = {
+    "eca-b": {"clutter lags": 0.33, "deeper cells": 0.07, "rest": 0.04},
+    "nlms": {"clutter lags": 0.43, "deeper cells": 0.73, "rest": 0.04},
+    "os": {"clutter lags": 0.5, "deeper cells": 0.08, "rest": 0.016},
+}
+# ECA-B's segment FFT size at the default config (192,000 = 2^9·3·5^3) and
+# a neighbour rich in twos, whose complex64 rounding phase_alternatives
+# compares.
+ECAB_NEIGHBOUR_NFFT = 196_608
+
+
+def alternative_config(root, alternative):
+    """The default config with one (stage, settings) of ALTERNATIVES or
+    SHARDED_ALTERNATIVES."""
+    from blah2_tpu_torch.config import load_config
+
+    cfg = load_config(os.path.join(root, "config", "config.yml"))
+    stage, settings = alternative
+    for k, v in settings.items():
+        setattr(getattr(cfg.process, stage), k, v)
+    return cfg
+
+
+def class_errors(amb, cfg, db, ref_db, ref_noise):
+    """Largest |db − ref_db| over the zero-Doppler clutter-lag cells, the
+    cells more than 10 dB under the reference map's mean, and the rest."""
+    import numpy as np
+
+    bulk, null = cell_masks(amb, cfg, ref_db, ref_noise)
+    diff = np.abs(db - ref_db)
+    return {"clutter lags": float(diff[null].max()),
+            "deeper cells": float(diff[~bulk & ~null].max()),
+            "rest": float(diff[bulk].max())}
+
+
+def det_cells(det):
+    v = det.valid.cpu()
+    return set(zip(det.row.cpu()[v].tolist(), det.col.cpu()[v].tolist()))
+
+
+def phase_alternatives(dev, root, card):
+    """ECA-B (nBatches 8) and NLMS (mu 0.1) with CA-CFAR, and Wiener with
+    OS-CFAR (rank 0.75), at the default config through the single-device
+    pipeline: complex128 on the card against complex128 on the CPU, the
+    fused detect kernel against the unfused chain on the same input,
+    complex64 on the card against complex128 on the card by class of
+    cells, the seeded targets, ms per CPI, kernels and detect launches per
+    CPI, and one call_staged CPI's stage times."""
+    import numpy as np
+    import torch
+
+    from blah2_tpu_torch.data.timing import StageTimer
+    from blah2_tpu_torch.dsp.pipeline import CpiPipeline
+    from blah2_tpu_torch.ops import detect as detect_mod
+    from blah2_tpu_torch.ops.pack12 import pack12_quads
+
+    results = {}
+    for name, alternative in ALTERNATIVES.items():
+        cfg = alternative_config(root, alternative)
+        quads, targets = default_scene(cfg)
+        packed = torch.from_numpy(pack12_quads(quads)).to(dev)
+        t0 = time.perf_counter()
+        cpu128 = CpiPipeline(cfg, dtype=torch.complex128, fused_detect=False,
+                             device="cpu").call_quad(quads)
+        cpu_s = time.perf_counter() - t0
+        card128 = CpiPipeline(cfg, dtype=torch.complex128,
+                              fused_detect=False, device=dev).call_quad(quads)
+        f64 = cpu128.db_map.numpy()
+        d128 = float(np.abs(card128.db_map.cpu().numpy() - f64).max())
+        v = cpu128.detections.valid
+        dsnr = float((card128.detections.snr.cpu()[v]
+                      - cpu128.detections.snr[v]).abs().max()) \
+            if bool(v.any()) else 0.0
+        check(d128 <= 1e-6 and dsnr <= 1e-6,
+              f"{name}: complex128 card vs cpu map {d128} dB, snr {dsnr} dB")
+        check(det_cells(card128.detections) == det_cells(cpu128.detections),
+              f"{name}: complex128 card and cpu detections differ")
+        check(bool(card128.clutter_ok), f"{name}: clutter solve failed")
+
+        # The main path: counts at 0 just before, read just after.
+        pipe = CpiPipeline(cfg, device=dev)
+        check((pipe.fused_detector is None) == (name == "os"),
+              f"{name}: fused detector {pipe.fused_detector}")
+        torch.cuda.synchronize()
+        detect_mod.detect.launches = 0
+        out = pipe.call_quad12(packed)
+        torch.cuda.synchronize()
+        launches = detect_mod.detect.launches
+        check(launches == (0 if name == "os" else 1),
+              f"{name}: {launches} detect launches in one CPI")
+        fused_vs_unfused = None
+        if launches:
+            # The kernel against the unfused chain on the same packed input.
+            u = CpiPipeline(cfg, fused_detect=False,
+                            device=dev).call_quad12(packed)
+            fused_vs_unfused = max(
+                float((u.db_map - out.db_map).abs().max()),
+                abs(float(u.noise_power) - float(out.noise_power)))
+            check(fused_vs_unfused <= 1e-4, f"{name}: fused and unfused "
+                  f"map or noise differ by {fused_vs_unfused} dB")
+            check(det_cells(u.detections) == det_cells(out.detections),
+                  f"{name}: fused and unfused detections differ")
+        amb = pipe.ambiguity
+        c64 = out.db_map.cpu().numpy()
+        errs = class_errors(amb, cfg, c64,
+                            card128.db_map.cpu().numpy(),
+                            float(card128.noise_power))
+        lim = ALT_LIMITS_DB[name]
+        for k, e in errs.items():
+            check(e <= lim[k], f"{name}: complex64 vs complex128 on the card "
+                  f"{k} {e} dB, limit {lim[k]}")
+        res = amb.doppler_resolution
+        ok64, dets64 = found(out, targets, res)
+        ok128, _ = found(cpu128, targets, res)
+        if name == "nlms":
+            check(all(a or not b for a, b in zip(ok64, ok128)),
+                  f"nlms: complex64 card lost a target its complex128 cpu "
+                  f"run found: card {ok64} cpu {ok128}")
+        else:
+            check(all(ok64), f"{name}: complex64 card missed a target: "
+                  f"{dets64}")
+
+        extra = {}
+        if name == "eca-b":
+            # The same CPI at a neighbouring segment FFT size: the value
+            # does not depend on it, the complex64 rounding does.
+            chosen = pipe.clutter.nfft
+            pipe.clutter.nfft = ECAB_NEIGHBOUR_NFFT
+            alt = pipe.call_quad12(packed).db_map.cpu().numpy()
+            pipe.clutter.nfft = chosen
+            extra = {"nfft": chosen, f"errors_at_{ECAB_NEIGHBOUR_NFFT}":
+                     class_errors(amb, cfg, alt,
+                                  card128.db_map.cpu().numpy(),
+                                  float(card128.noise_power))}
+
+        ms = event_times(lambda: pipe.call_quad12(packed), 10, 2)
+        n_prof = 1 if name == "nlms" else 3
+
+        def window():
+            by_name = device_profile(lambda: pipe.call_quad12(packed),
+                                     n_prof)
+            seen = sum(c for k, (_, c) in by_name.items() if "detect_" in k)
+            return by_name, shortfall(seen, launches * n_prof,
+                                      "detect launches")
+
+        by_name = profiled_whole(window, name)
+        kernels = sum(c for _, c in by_name.values()) / n_prof
+        busy = sum(t for t, _ in by_name.values()) / n_prof / 1e3
+        xp = torch.from_numpy(quads[:, :2]).to(dev)
+        yp = torch.from_numpy(quads[:, 2:]).to(dev)
+        pipe.call_staged(xp, yp)
+        st = StageTimer()
+        st.start()
+        staged = pipe.call_staged(xp, yp, timer=st)
+        check(det_cells(staged.detections) == det_cells(out.detections),
+              f"{name}: staged and fused detections differ")
+        results[name] = {
+            "complex128_card_vs_cpu_db": d128, "snr_db": dsnr,
+            "fused_vs_unfused_db": fused_vs_unfused,
+            "complex64_vs_complex128_db": errs,
+            "targets_c64_card": ok64, "targets_c128_cpu": ok128,
+            "ms_per_cpi": ms, "kernels_per_cpi": kernels,
+            "device_busy_ms_per_cpi": busy,
+            "idle_share": 1.0 - busy / ms["median"],
+            "detect_launches_per_cpi": launches,
+            "staged_ms": dict(zip(st.names, st.times_ms)),
+            "cpu_complex128_s": cpu_s, "card": card, **extra}
+        print(f"alternative {name} " + json.dumps(results[name]))
+    return results
+
+
+def phase_sharded_alternatives(dev, root, card):
+    """ECA-B, NLMS and nSub 4 through the sharded pipeline on a 1 × 4 mesh
+    of logical ranks on the card: the halo kernel against ppermute, the
+    fused detect kernel against the unfused chain, the halo launches of one
+    step (one a shift on one card), complex128 on the card against the
+    sharded complex128 on the CPU, ms per step."""
+    import torch
+
+    from blah2_tpu_torch.ops.detect import detect
+    from blah2_tpu_torch.ops.halo import halo_permute
+    from blah2_tpu_torch.parallel.collectives import count_bytes
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    results = {}
+    for name, alternative in SHARDED_ALTERNATIVES.items():
+        cfg = alternative_config(root, alternative)
+        quads, targets = default_scene(cfg)
+        x = quads[:, 0] + 1j * quads[:, 1]
+        y = quads[:, 2] + 1j * quads[:, 3]
+        mesh = one_card_mesh(dev, (1, 4))
+        outs, launches = {}, {}
+        for backend in ("ppermute", "pallas"):
+            sp = ShardedCpiPipeline(cfg, mesh, halo_backend=backend,
+                                    use_fused_detect=True)
+            planes = sp.shard_inputs(x, y)
+            torch.cuda.synchronize()
+            # The sharded main path: counts at 0 just before, read after.
+            halo_permute.launches = detect.launches = 0
+            with count_bytes(mesh) as ops:
+                outs[backend] = sp(*planes)
+            torch.cuda.synchronize()
+            launches[backend] = (halo_permute.launches, detect.launches)
+        shifts = sum(op.kind == "permute" for op in ops)
+        want = {"eca-b": 3, "nlms": 3, "nsub4": 4}[name]
+        check(shifts == want and launches["pallas"] == (want, 1),
+              f"sharded {name}: {shifts} shifts, halo/detect launches "
+              f"{launches['pallas']}, want ({want}, 1)")
+        check(launches["ppermute"][0] == 0,
+              f"sharded {name}: ppermute launched the halo kernel")
+        a, p = outs["ppermute"], outs["pallas"]
+        check(torch.equal(a.db_map, p.db_map),
+              f"sharded {name}: backends' maps differ")
+        for k in a.detections._fields:
+            check(torch.equal(getattr(a.detections, k),
+                              getattr(p.detections, k)),
+                  f"sharded {name}: backends' detections differ on {k}")
+        ok, _ = found(cpi_of(p, 0), targets, sp.ambiguity.doppler_resolution)
+        # The kernel against the unfused chain on the same planes.
+        sp_u = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas")
+        u = sp_u(*sp_u.shard_inputs(x, y))
+        d_fused = max(float((u.db_map - p.db_map).abs().max()),
+                      float((u.noise_power - p.noise_power).abs().max()))
+        check(d_fused <= 1e-4, f"sharded {name}: fused and unfused map or "
+              f"noise differ by {d_fused} dB")
+        check(det_set(u.detections, 0) == det_set(p.detections, 0),
+              f"sharded {name}: fused and unfused detections differ")
+
+        # complex128 on the card against the same on the CPU.
+        s128 = {}
+        for where, m in (("card", mesh), ("cpu", make_radar_mesh(
+                1, 4, devices=["cpu"] * 4))):
+            sp128 = ShardedCpiPipeline(cfg, m, dtype=torch.complex128,
+                                       halo_backend="pallas")
+            s128[where] = sp128(*sp128.shard_inputs(x, y))
+        d128 = float((s128["card"].db_map.cpu()
+                      - s128["cpu"].db_map).abs().max())
+        check(d128 <= 1e-6, f"sharded {name}: complex128 card vs cpu "
+              f"{d128} dB")
+        check(det_set(s128["card"].detections, 0)
+              == det_set(s128["cpu"].detections, 0),
+              f"sharded {name}: complex128 card and cpu detections differ")
+        if name == "nsub4":
+            dsub = float((s128["card"].sub_spectra_db.cpu()
+                          - s128["cpu"].sub_spectra_db).abs().max())
+            check(p.sub_spectra_db.shape == (1, 4, 2000) and dsub <= 1e-6,
+                  f"sharded nsub4: sub spectra {tuple(p.sub_spectra_db.shape)}"
+                  f", complex128 card vs cpu {dsub} dB")
+        ms = event_times(lambda: sp(*planes), 10, 2)
+        results[name] = {"shifts_per_step": shifts,
+                         "halo_launches_per_step": launches["pallas"][0],
+                         "detect_launches_per_step": launches["pallas"][1],
+                         "complex128_card_vs_cpu_db": d128,
+                         "fused_vs_unfused_db": d_fused,
+                         "targets_c64": ok, "ms_per_step": ms, "card": card}
+        print(f"sharded_alternative {name} " + json.dumps(results[name]))
+    word = halo_permute.error()
+    check(word == 0, f"halo kernel error word {word}")
+    return results
+
+
+RUNTIME_MESH_CPIS = 10
+# Limits in dB of the mesh runtime's complex64 maps against the
+# single-device pipeline's complex64 maps of the same windows in linear
+# clutter mode (the function the sharded path computes), per class of
+# cells. Each lies between the largest sound reading (0.575, 0.319 and
+# 0.0092 dB, the same in every chip run) and the control reading of a
+# different function, the single-device runtime's circular correlations
+# (11.2, 1.08 and 0.059 dB), both on an NVIDIA H100 80GB HBM3, 700 W
+# (PERF.md, Findings); phase_runtime_mesh prints both.
+RUNTIME_MESH_LIMITS_DB = {"clutter lags": 1.15, "deeper cells": 0.64,
+                          "rest": 0.02}
+
+
+def phase_runtime_mesh(dev, root, card):
+    """The runtime in mesh mode, 1 × 4 logical ranks on the card with the
+    halo kernel, on the looped replay of phase_runtime's three windows:
+    10 product sets in order, the halo launches, each map against the
+    single-device pipeline's map of the same window in linear clutter mode
+    (the sharded path's function; the single-device runtime's circular
+    correlations differ from it by O(n_bins/n), which is printed), and
+    the cpi and latency medians."""
+    import tempfile
+
+    import torch
+
+    from blah2_tpu_torch.capture.source import Source
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.dsp.pipeline import CpiPipeline
+    from blah2_tpu_torch.ops.halo import halo_permute
+    from blah2_tpu_torch.runtime.radar import RadarRuntime
+
+    def config(fname):
+        cfg = load_config(os.path.join(root, "config", "config.yml"))
+        cfg.capture.replay.state = True
+        cfg.capture.replay.loop = True
+        cfg.capture.replay.file = fname
+        return cfg
+
+    def keep_outputs(rt):
+        outs = []
+        emit_products = rt._emit_products
+
+        def keep(out, t0, **kw):
+            outs.append(out)
+            return emit_products(out, t0, **kw)
+
+        rt._emit_products = keep
+        return outs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = config("")
+        src = Source("RspDuo", cfg.capture.fs, cfg.capture.fc, path=tmp)
+        fname = src.open_record_file()
+        linear = CpiPipeline(cfg, clutter_mode="linear", device=dev)
+        refs = []
+        for seed in (11, 12, 13):
+            q, _ = default_scene(cfg, seed)
+            src.record(q[:, 0] + 1j * q[:, 1], q[:, 2] + 1j * q[:, 3])
+            out = linear.call_quad(q)
+            refs.append((out.db_map.cpu().numpy(), float(out.noise_power)))
+        src.close_record_file()
+        cfg = config(fname)
+
+        single = RadarRuntime(cfg, staged_sample_every=0, device=dev)
+        single_outs = keep_outputs(single)
+        single.start_capture()
+        run_bounded(single, 3, 300.0)
+
+        stub = StubApi()
+        rt = RadarRuntime(cfg, api_server=stub, mesh=one_card_mesh(
+            dev, (1, 4)), halo_backend="pallas")
+        stub.rt = rt
+        check(rt.cpi_batch == 1 and rt.sharded is not None, "mesh runtime")
+        outs = keep_outputs(rt)
+        rt.start_capture()
+        # The mesh runtime's main path: counts at 0 just before, read after.
+        halo_permute.launches = 0
+        wall = run_bounded(rt, RUNTIME_MESH_CPIS, 300.0)
+        torch.cuda.synchronize()
+        launches = halo_permute.launches
+
+    n = RUNTIME_MESH_CPIS
+    maps = [json.loads(v) for p, v, _ in stub.log if p == "map"]
+    check(len(maps) == n == len(outs), f"{len(maps)} map products for {n} "
+          f"CPIs")
+    stamps = [m["timestamp"] for m in maps]
+    check(stamps == sorted(stamps), "mesh runtime products out of order")
+    for product in ("iqdata", "detection", "timing", "timestamp"):
+        got = sum(p == product for p, _, _ in stub.log)
+        check(got == n, f"{got} {product} products for {n} CPIs")
+    check(launches == 4 * n, f"{launches} halo launches in {n} steps")
+    word = halo_permute.error()
+    check(word == 0, f"halo kernel error word {word}")
+    worst: dict = {}
+    circular: dict = {}
+    amb = rt.pipeline.ambiguity
+    for j, out in enumerate(outs):
+        for acc, (ref_db, ref_noise) in (
+                (worst, refs[j % 3]),
+                (circular, (single_outs[j % 3].db_map,
+                            float(single_outs[j % 3].noise_power)))):
+            for k, e in class_errors(amb, cfg, out.db_map, ref_db,
+                                     ref_noise).items():
+                acc[k] = max(acc.get(k, 0.0), e)
+    for k, lim in RUNTIME_MESH_LIMITS_DB.items():
+        check(worst[k] <= lim, f"mesh runtime vs linear single {k} "
+              f"{worst[k]} dB, limit {lim}")
+    docs = [json.loads(v) for p, v, _ in stub.log if p == "timing"]
+    for doc in docs:
+        missing = TIMING_KEYS - set(doc)
+        check(not missing, f"mesh timing doc without {sorted(missing)}")
+    line = {"cpis": n, "wall_s": wall,
+            "cpi_ms_median": statistics.median(d["cpi"] for d in docs),
+            "latency_ms_median": statistics.median(d["latency"]
+                                                   for d in docs),
+            "halo_launches": launches, "vs_linear_single_db": worst,
+            "vs_single_runtime_db": circular,
+            "card": card}
+    print("runtime_mesh " + json.dumps(line))
+    return launches, line
+
+
 def main() -> int:
     import torch
 
@@ -1239,6 +1710,7 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on")
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     # One nvcc per source, all started together.
     t0 = time.perf_counter()
@@ -1266,6 +1738,9 @@ def main() -> int:
     phase_nsub(dev, ROOT)
     halo_launches = phase_sharded(dev, ROOT)
     sh = phase_sharded_timing(dev, ROOT, card)
+    alt = phase_alternatives(dev, ROOT, card)
+    sh_alt = phase_sharded_alternatives(dev, ROOT, card)
+    mesh_launches, mesh_rt = phase_runtime_mesh(dev, ROOT, card)
 
     kern_ms = min(timing["detect_ms"])
     plain_ms = min(timing["detect_plain_ms"])
@@ -1283,14 +1758,32 @@ def main() -> int:
           f"(planes on device to detections); halo kernel "
           f"{min(sh['shift_ms']) * 1e3:.2f} us a shift, "
           f"{sh['halo_device_ms'] * 1e3:.2f} us device")
+    for k, v in alt.items():
+        print(f"{k}, default config on {card}: "
+              f"{v['ms_per_cpi']['median']:.3f} ms/CPI median of 10 "
+              f"(packed-12 on device to detections), "
+              f"{v['kernels_per_cpi']:.0f} kernels a CPI, "
+              f"{v['detect_launches_per_cpi']} detect launches a CPI")
+    for k, v in sh_alt.items():
+        print(f"sharded {k}, 1 x 4 ranks on {card}: "
+              f"{v['ms_per_step']['median']:.3f} ms/step median of 10, "
+              f"{v['halo_launches_per_step']} halo launches a step")
+    print(f"runtime mesh 1 x 4 on {card}: {mesh_rt['cpi_ms_median']} ms "
+          f"cpi, {mesh_rt['latency_ms_median']} ms latency (medians of "
+          f"{mesh_rt['cpis']})")
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "detect",
         "route": "cuda",
         "source": "blah2_tpu_torch/csrc/detect.cu",
         "replaces": "blah2_tpu/ops/pallas_detect.py:78",
         "launches": runtime_launches,
-        "launches_by_path": {"runtime": runtime_launches,
-                             "call_quad12": launches},
+        "launches_by_path": {
+            "runtime": runtime_launches, "call_quad12": launches,
+            **{f"{k}_call_quad12": v["detect_launches_per_cpi"]
+               for k, v in alt.items()},
+            **{f"sharded_{k}_step": v["detect_launches_per_step"]
+               for k, v in sh_alt.items()}},
         "max_abs_err": err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
@@ -1306,6 +1799,11 @@ def main() -> int:
         "source": "blah2_tpu_torch/csrc/halo.cu",
         "replaces": "blah2_tpu/parallel/halo.py:49",
         "launches": halo_launches,
+        "launches_by_path": {
+            "sharded_step": halo_launches,
+            **{f"sharded_{k}_step": v["halo_launches_per_step"]
+               for k, v in sh_alt.items()},
+            "runtime_mesh": mesh_launches},
         "max_abs_err": halo_err,
         "ms": min(sh["shift_ms"]),
         "plain_ms": min(sh["shift_plain_ms"]),

@@ -521,3 +521,119 @@ def test_cli_on_the_card_with_async_warmup(card):
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.count("CPI time (ms)") == 12
+
+
+# -- the alternative algorithms on the card --------------------------------------
+
+# The scene of the verify recipe with each alternative.
+_VERIFY = {
+    "capture": {"fs": 200_000, "fc": 204_640_000},
+    "process": {
+        "data": {"cpi": 0.1},
+        "ambiguity": {"delayMin": -10, "delayMax": 100, "dopplerMin": -200,
+                      "dopplerMax": 200},
+        "clutter": {"enable": True, "delayMin": -10, "delayMax": 100},
+        "detection": {"enable": True, "pfa": 1e-5, "nGuard": 2, "nTrain": 6,
+                      "minDelay": 5, "minDoppler": 15, "nCentroid": 6},
+    },
+}
+_ALTERNATIVES = {"eca-b": ("clutter", {"filter": "eca-b", "nBatches": 4}),
+                 "nlms": ("clutter", {"filter": "nlms", "mu": 0.1}),
+                 "os": ("detection", {"cfar": "os"})}
+
+
+def _alternative_config(name):
+    import copy
+
+    from blah2_tpu_torch.config import config_from_dict
+
+    d = copy.deepcopy(_VERIFY)
+    stage, kv = _ALTERNATIVES[name]
+    d["process"][stage].update(kv)
+    return config_from_dict(d)
+
+
+def _det_cells(det):
+    v = det.valid.cpu()
+    return set(zip(det.row.cpu()[v].tolist(), det.col.cpu()[v].tolist()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_ALTERNATIVES))
+def test_alternative_on_card_matches_cpu(card, name):
+    """complex128 on the card against the CPU: the map within 1e-6 dB and
+    the same detections; at complex64 on the card the detect kernel runs
+    once a CPI under CA-CFAR and never under OS-CFAR."""
+    from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
+    from blah2_tpu_torch.dsp.pipeline import CpiPipeline
+
+    cfg = _alternative_config(name)
+    x, y = synthetic_cpi(20_000, 200_000, [TargetSpec(40, -77.0, 0.05),
+                                           TargetSpec(61, 112.0, 0.03)],
+                         clutter_amplitude=3.0, noise_amplitude=1e-3, seed=7)
+    outs = [CpiPipeline(cfg, dtype=torch.complex128, fused_detect=False,
+                        device=dev)(x, y) for dev in (card, "cpu")]
+    a, b = outs
+    assert float((a.db_map.cpu() - b.db_map).abs().max()) <= 1e-6
+    assert bool(a.clutter_ok) and bool(b.clutter_ok)
+    assert _det_cells(a.detections) == _det_cells(b.detections)
+    assert len(_det_cells(b.detections)) >= 1
+    pipe = CpiPipeline(cfg, device=card)
+    assert (pipe.fused_detector is None) == (name == "os")
+    launches = tdetect.detect.launches
+    pipe(x, y)
+    torch.cuda.synchronize()
+    assert tdetect.detect.launches - launches == (0 if name == "os" else 1)
+
+
+@pytest.mark.cuda
+def test_sharded_nlms_batched_scan_equals_ranks_in_turn(card):
+    """On one card the 1 × 4 mesh's NLMS chains run as one scan over a
+    leading rank dimension; the ranks run in turn give the same products."""
+    from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
+    from blah2_tpu_torch.config import config_from_dict
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    cfg = config_from_dict({
+        "capture": {"fs": 80_000, "fc": 204_640_000},
+        "process": {
+            "data": {"cpi": 0.2},
+            "ambiguity": {"delayMin": -5, "delayMax": 60,
+                          "dopplerMin": -100, "dopplerMax": 100},
+            "clutter": {"enable": True, "delayMin": -5, "delayMax": 30,
+                        "filter": "nlms"},
+            "detection": {"enable": True, "pfa": 1e-5, "nGuard": 2,
+                          "nTrain": 6, "minDelay": 5, "minDoppler": 15,
+                          "nCentroid": 6}}})
+    x, y = synthetic_cpi(cfg.n_samples, cfg.capture.fs,
+                         [TargetSpec(20, -44.0, 0.1)],
+                         clutter_amplitude=2.0, noise_amplitude=1e-3, seed=0)
+    sp = ShardedCpiPipeline(cfg, make_radar_mesh(1, 4, devices=[card] * 4),
+                            dtype=torch.complex128, halo_backend="pallas")
+    planes = sp.shard_inputs(x, y)
+    a = sp(*planes)
+    sp.nlms_batch_ranks = False
+    b = sp(*planes)
+    assert float((a.db_map - b.db_map).abs().max()) <= 1e-9
+    assert _det_cells(a.detections) == _det_cells(b.detections)
+
+
+@pytest.mark.cuda
+def test_cli_mesh_on_one_card(card):
+    """``--mesh 1x4`` puts four ranks on the one card, the halo kernel
+    between them."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = repo
+    proc = subprocess.run(
+        [sys.executable, "-m", "blah2_tpu_torch.runtime.cli", "--config",
+         os.path.join(repo, "config", "config-synthetic.yml"), "--cpis",
+         "4", "--no-api", "--mesh", "1x4", "--halo-backend", "pallas"],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("(batch of 1") == 4

@@ -110,10 +110,13 @@ def test_make_clutter_filter():
     f = make_clutter_filter(ClutterConfig(delay_min=-3, delay_max=10), 2000,
                             dtype=torch.complex128, device="cpu")
     assert isinstance(f, WienerHopfFilter) and f.n_bins == 13
-    for kind in ("eca-b", "nlms"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_clutter_filter(ClutterConfig(filter=kind), 2000,
+    from blah2_tpu_torch.dsp.clutter_eca import EcaBFilter, NlmsClutterFilter
+
+    for kind, cls in (("eca-b", EcaBFilter), ("nlms", NlmsClutterFilter)):
+        g = make_clutter_filter(ClutterConfig(filter=kind, delay_min=-3,
+                                              delay_max=10), 2000,
                                 device="cpu")
+        assert isinstance(g, cls) and g.n_bins == 13
     with pytest.raises(ValueError):
         make_clutter_filter(ClutterConfig(filter="bogus"), 2000, device="cpu")
 
@@ -262,9 +265,9 @@ def test_make_cfar():
     c = tcfar.make_cfar(DetectionConfig(), DELAY_AXIS, DOPPLER_AXIS,
                         device="cpu")
     assert isinstance(c, tcfar.CfarDetector)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfar.make_cfar(DetectionConfig(cfar="os"), DELAY_AXIS, DOPPLER_AXIS,
+    c = tcfar.make_cfar(DetectionConfig(cfar="os"), DELAY_AXIS, DOPPLER_AXIS,
                         device="cpu")
+    assert isinstance(c, tcfar.OsCfarDetector) and c.rank == 0.75
     with pytest.raises(ValueError):
         tcfar.make_cfar(DetectionConfig(cfar="x"), DELAY_AXIS, DOPPLER_AXIS,
                         device="cpu")

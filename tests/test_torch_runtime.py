@@ -537,22 +537,42 @@ def test_runtime_needs_a_card_unless_told():
 
 
 def test_mesh_mode_refuses():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        RadarRuntime(load_config(CONFIG), mesh=object(), device="cpu")
+    """Mesh mode runs in this one process; what still refuses is a run
+    over several processes, whose message names the ROADMAP item."""
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+    from blah2_tpu_torch.runtime.radar import MESH_NOT_PORTED
+
+    rt = RadarRuntime(load_config(CONFIG), device="cpu",
+                      mesh=make_radar_mesh(1, 2, devices=["cpu"] * 2))
+    assert rt.sharded is not None and rt.cpi_batch == 1
+    assert "queue 1 item 4" in MESH_NOT_PORTED
+    assert "--mesh" not in MESH_NOT_PORTED
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x4"],
-                                  ["--halo-backend", "pallas"],
-                                  ["--row-shard", "on"],
-                                  ["--coordinator", "localhost:1234"],
+@pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234"],
                                   ["--num-processes", "2"],
                                   ["--process-id", "0"]],
                          ids=lambda f: f[0])
 def test_cli_refuses_mesh_flags(flag, capsys):
+    """The multi-process flags still exit 2, naming the ROADMAP item."""
     rc = cli.main(["--config", CONFIG, "--device", "cpu", "--no-api",
                    "--cpis", "1"] + flag)
-    assert rc != 0
+    assert rc == 2
     assert "queue 1 item 4" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "2x4"],
+                                  ["--halo-backend", "pallas"],
+                                  ["--row-shard", "on"]],
+                         ids=lambda f: f[0])
+def test_cli_mesh_flags_run_one_cpi(flag, capsys):
+    """Each mesh-mode flag runs with ``--device cpu`` (the latter two on a
+    1 × 2 mesh)."""
+    mesh = [] if flag[0] == "--mesh" else ["--mesh", "1x2"]
+    rc = cli.main(["--config", CONFIG, "--device", "cpu", "--no-api",
+                   "--cpis", "1"] + mesh + flag)
+    assert rc == 0
+    assert "(batch of" in capsys.readouterr().out
 
 
 def _cli(*args):

@@ -216,12 +216,17 @@ def test_sharded_switches_and_unported_filters():
         xb, yb)
     assert bool(out.clutter_ok.all())
     for filt in ("eca-b", "nlms"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ShardedCpiPipeline(config_from_dict(
-                _scene(process__clutter__filter=filt)), mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sp = ShardedCpiPipeline(config_from_dict(
+            _scene(process__clutter__filter=filt)), mesh)
+        assert sp.clutter_kind == filt
+    sp = ShardedCpiPipeline(config_from_dict(
+        _scene(process__spectrum={"nSub": 2})), mesh)
+    assert sp.spectrum_sub is not None
+    assert _run(sp, xb, yb).sub_spectra_db.shape == \
+        (2, 2, sp.spectrum.n_spectrum)
+    with pytest.raises(ValueError, match="nSub"):
         ShardedCpiPipeline(config_from_dict(
-            _scene(process__spectrum={"nSub": 2})), mesh)
+            _scene(process__spectrum={"nSub": 20})), mesh)
     with pytest.warns(UserWarning, match="falling back"):
         sp = ShardedCpiPipeline(config_from_dict(
             _scene(process__clutter__filter="lms")), mesh)
