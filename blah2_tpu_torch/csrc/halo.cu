@@ -8,18 +8,29 @@
 // circularly; with the edge mask, the receive buffer of the ring's edge
 // rank is zero-filled instead (the wrap-around that the JAX caller masks).
 //
-// Design. One process drives every rank (the mesh is single-controller, as
-// shard_map is), so one call covers every rank: per device one launch whose
-// grid's y index b is one of that device's ranks, the blocks of row b
-// sending for rank r to the rank q that receives from r.
+// Design. One process drives all of its ranks, so one call covers every
+// rank of the process: per device one launch whose grid's y index b is one
+// block of work, most often the sending for one of that device's ranks r to
+// the rank q that receives from r.
+//
+// Blocks. Each block has a source, a destination and four flag words, and
+// any of the destination and the flags may be null: a null part is skipped.
+// So one launch serves a mix of pairs: pairs whose both ends the launch
+// holds, pairs whose other end lies in another process (its receive buffer
+// and flags mapped here by CUDA IPC), and blocks that only zero-fill a
+// receive buffer (the masked edge whose sender is in another process that
+// this launch cannot reach; such pairs move through the process group, off
+// the kernel). A block with a null destination copies nothing; one with null
+// flags waits for nothing.
 //
 // Payload layout. A payload is `rows` runs of `words` 32-bit words, run k
 // starting at word k * `stride` of the rank's source pointer: a (B, n)
 // block sliced [..., :count] or [..., -count:] is read where it lies, with
 // no copy first. complex64 and complex128 pass as their interleaved real
 // and imaginary words, float32 and float64 as theirs, so the copy is
-// bit-exact whatever the type. Receive buffers are contiguous: the wrapper
-// allocates one (ranks on the card, *shape) tensor per card and call.
+// bit-exact whatever the type. Receive buffers are contiguous: on one card
+// the wrapper allocates one (ranks on the card, *shape) tensor per call;
+// with flags they lie in the plan's window (see below).
 //
 // One card (`sys_scope` == 0): a plain strided copy, no flags, over a grid
 // of (chunks, ranks) blocks, kChunk words a block. Every rank
@@ -31,8 +42,9 @@
 // wait guarantees (every receive buffer is written).
 //
 // Across cards (`sys_scope` != 0), where a peer's stream is not ordered
-// with ours, the flag protocol of the TPU kernel's barrier, one block per
-// rank (a grid of (1, ranks)). Block b:
+// with ours (another card of the process, or a card of another process on
+// the host, reached through CUDA IPC), the flag protocol of the TPU
+// kernel's barrier, one block per rank (a grid of (1, blocks)). Block b:
 //
 //   1. arrive: thread 0 stores arrive[r] = epoch (release), then waits until
 //      arrive[q] >= epoch (acquire). Rank q's block runs only after every
@@ -47,11 +59,20 @@
 //      kernels may read it.
 //
 // The flags are 64-bit words in device memory, one arrive and one ready
-// word per (collective_id, rank), on the rank's own card: call sites with
-// no data dependency on each other get their own slot (the collective_id
-// rule of the TPU kernel). The wrapper passes an epoch that grows by one
-// per call and collective_id, so no flag is ever reset. Stores are
-// st.release.sys and loads ld.acquire.sys.
+// word per rank, on the rank's own card. The flag words, the error word and
+// the receive buffers of a plan (one per call site, shape and direction:
+// call sites with no data dependency on each other get their own, the
+// collective_id rule of the TPU kernel) live in one cudaMalloc'ed window per
+// card (halo_window_alloc), outside PyTorch's caching allocator, so that an
+// exported handle maps the window itself and not the base of a pooled
+// block; across processes each process opens its peers' windows once
+// (halo_ipc_open). The wrapper passes an epoch that grows by one per call of
+// the plan, so no flag is ever reset. Stores are st.release.sys and loads
+// ld.acquire.sys. The receive buffers are reused from call to call, and the
+// arrive wait is what keeps a fast sender from overwriting a buffer that its
+// receiver still reads: the receiver arrives only when every earlier kernel
+// on its stream, the readers of the last call's buffer included, has
+// finished.
 //
 // No hang: a wait that runs past kSpinLimit clock cycles (about half a
 // second) writes a nonzero error word (1 for the barrier, 2 for the data)
@@ -71,6 +92,8 @@
 // synchronise, and returns cudaGetLastError() (0 on success).
 
 #include <cuda_runtime.h>
+
+#include <cstring>
 
 namespace {
 
@@ -148,27 +171,39 @@ halo_permute(const HaloArgs args, int rows, int words, long long stride,
              unsigned long long epoch, int sys_scope, unsigned int* err) {
   const int b = blockIdx.y;
   const bool zero = (args.zero_mask >> b) & 1u;
+  unsigned int* dst = args.dst[b];
   if (sys_scope == 0) {
-    copy_payload(args.src[b], args.dst[b], zero, rows, words, stride);
+    if (dst != nullptr) {
+      copy_payload(args.src[b], dst, zero, rows, words, stride);
+    }
     return;
   }
 
   __shared__ int s_ok;
   if (threadIdx.x == 0) {
-    store_release_sys(args.my_arrive[b], epoch);
-    s_ok = wait_for(args.dst_arrive[b], epoch);
+    if (args.my_arrive[b] != nullptr) {
+      store_release_sys(args.my_arrive[b], epoch);
+    }
+    s_ok = args.dst_arrive[b] == nullptr ||
+           wait_for(args.dst_arrive[b], epoch);
     if (!s_ok) atomicOr(err, 1u);
   }
   __syncthreads();
   if (!s_ok) return;
 
-  copy_payload(args.src[b], args.dst[b], zero, rows, words, stride);
+  if (dst != nullptr) {
+    copy_payload(args.src[b], dst, zero, rows, words, stride);
+  }
   __syncthreads();
 
   if (threadIdx.x == 0) {
-    __threadfence_system();
-    store_release_sys(args.dst_ready[b], epoch);
-    if (!wait_for(args.my_ready[b], epoch)) atomicOr(err, 2u);
+    if (args.dst_ready[b] != nullptr) {
+      __threadfence_system();
+      store_release_sys(args.dst_ready[b], epoch);
+    }
+    if (args.my_ready[b] != nullptr && !wait_for(args.my_ready[b], epoch)) {
+      atomicOr(err, 2u);
+    }
   }
 }
 
@@ -179,7 +214,7 @@ extern "C" int halo_max_ranks() { return kMaxRanks; }
 // ptrs holds 2 * n_blocks addresses on one card (sources, then neighbours'
 // receive buffers) or 6 * n_blocks across cards (then own arrive flags,
 // neighbours' arrive flags, neighbours' ready flags, own ready flags), each
-// a run of n_blocks.
+// a run of n_blocks; any but a source may be null (that part is skipped).
 extern "C" int halo_launch(int n_blocks, void* const* ptrs, int rows,
                            int words, long long stride, unsigned int zero_mask,
                            long long epoch, int sys_scope, void* err,
@@ -231,6 +266,71 @@ extern "C" int halo_enable_peer(int peer) {
   if (e == cudaErrorPeerAccessAlreadyEnabled) {
     cudaGetLastError();
     return 0;
+  }
+  return static_cast<int>(e);
+}
+
+// The window entries below make `device` current for their calls and give
+// the previous current device back, as halo_launch does.
+namespace {
+
+struct OnDevice {
+  int previous = -1;
+  cudaError_t error;
+  explicit OnDevice(int device) {
+    error = cudaGetDevice(&previous);
+    if (error == cudaSuccess && previous != device) {
+      error = cudaSetDevice(device);
+    }
+  }
+  ~OnDevice() {
+    if (previous >= 0) cudaSetDevice(previous);
+  }
+};
+
+}  // namespace
+
+extern "C" int halo_ipc_handle_bytes() {
+  return static_cast<int>(sizeof(cudaIpcMemHandle_t));
+}
+
+// A window of `bytes` zeroed bytes on `device` for a plan that takes flags:
+// cudaMalloc'ed, so that its IPC handle (written to `handle` where that is
+// not null, halo_ipc_handle_bytes() long) maps exactly this allocation.
+// Synchronises the card, so the zeros are in place before a launch or a
+// peer uses the window.
+extern "C" int halo_window_alloc(long long bytes, int device, void** ptr,
+                                 void* handle) {
+  OnDevice on(device);
+  cudaError_t e = on.error;
+  if (e == cudaSuccess) e = cudaMalloc(ptr, static_cast<size_t>(bytes));
+  if (e == cudaSuccess) e = cudaMemset(*ptr, 0, static_cast<size_t>(bytes));
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  if (e == cudaSuccess && handle != nullptr) {
+    e = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  }
+  return static_cast<int>(e);
+}
+
+// Map a peer process's window (its handle) into this process, for launches
+// on `device`; the peer's card becomes reachable from `device`.
+extern "C" int halo_ipc_open(const void* handle, int device, void** ptr) {
+  OnDevice on(device);
+  cudaError_t e = on.error;
+  if (e == cudaSuccess) {
+    cudaIpcMemHandle_t h;
+    memcpy(&h, handle, sizeof(h));
+    e = cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  }
+  return static_cast<int>(e);
+}
+
+// Unmap a peer's window (`opened`) or free one's own.
+extern "C" int halo_window_release(void* ptr, int device, int opened) {
+  OnDevice on(device);
+  cudaError_t e = on.error;
+  if (e == cudaSuccess) {
+    e = opened ? cudaIpcCloseMemHandle(ptr) : cudaFree(ptr);
   }
   return static_cast<int>(e);
 }

@@ -3,8 +3,9 @@
 The counterparts of the ``jax.lax`` collectives that the sharded step uses
 (``blah2_tpu/parallel/sharded.py:358-359, 581-583, 617-619`` and
 ``blah2_tpu/parallel/halo.py:37-46``). A sharded value is a list with one
-tensor per rank, each on its rank's device. One process runs every rank, so
-a collective is plain tensor arithmetic across the list:
+tensor per rank, each on its rank's device (None at the ranks of another
+process). Where every group of the axis lies in one process, a collective
+is plain tensor arithmetic across the list:
 
   - :func:`psum` sums a group in rank order, so the result is the same on
     every run and on every rank;
@@ -17,6 +18,13 @@ a collective is plain tensor arithmetic across the list:
 
 Ranks of one group that share a device share one result tensor: treat
 results as read-only.
+
+Where a group crosses a process (a mesh over several processes,
+``parallel/distributed.py``), the payloads go through the process group: a
+psum gathers every rank's partial and adds the group's partials in rank
+order, as in one process (not ``all_reduce``), so the products are the
+same bits as one process's on the same device type; a permute sends the
+pairs that cross a process by ``batch_isend_irecv``.
 
 Byte counts (the counterpart of ``blah2_tpu/parallel/commstats.py``, which
 reads them from compiled HLO): inside ``with count_bytes(mesh) as ops:``
@@ -32,6 +40,7 @@ from typing import Dict, Iterator, List, NamedTuple
 
 import torch
 
+from blah2_tpu_torch.parallel import distributed
 from blah2_tpu_torch.parallel.mesh import RadarMesh
 
 
@@ -80,13 +89,34 @@ def axis_index(mesh: RadarMesh, rank: int, axis: str = "pulse") -> int:
     return mesh.axis_index(rank, axis)
 
 
+def local(xs: List, mesh: RadarMesh):
+    """The first of this process's tensors in a per-rank list."""
+    return xs[mesh.local_ranks[0]]
+
+
+def gather_ranks(xs: List[torch.Tensor], mesh: RadarMesh) -> List:
+    """Every rank's tensor in this process, on its first rank's device
+    (local ranks' as they are): an all-gather over the processes."""
+    home = mesh.device
+    mine = torch.stack([xs[r].to(home) for r in mesh.local_ranks])
+    out = []
+    for p, block in enumerate(distributed.all_gather(mine)):
+        out.extend(block.unbind(0) if p != mesh.process_index
+                   else [xs[r] for r in mesh.local_ranks])
+    return out
+
+
 def _group_sums(xs: List[torch.Tensor], mesh: RadarMesh,
                 axis: str) -> List[torch.Tensor]:
-    """Each rank's group sum, in rank order, on the rank's device."""
+    """Each local rank's group sum, in rank order, on the rank's device."""
+    if mesh.crosses(axis):
+        xs = gather_ranks(xs, mesh)
     out: List = [None] * len(xs)
     for group in mesh.groups(axis):
         per_device: dict = {}
         for r in group:
+            if not mesh.is_local(r):
+                continue
             dev = xs[r].device
             if dev not in per_device:
                 acc = xs[group[0]].to(dev)
@@ -100,7 +130,8 @@ def _group_sums(xs: List[torch.Tensor], mesh: RadarMesh,
 def psum(xs: List[torch.Tensor], mesh: RadarMesh,
          axis: str = "pulse") -> List[torch.Tensor]:
     """``lax.psum``: every rank gets the sum over its ``axis`` group."""
-    record(mesh, "psum", axis, xs[0].shape, xs[0].dtype)
+    x0 = local(xs, mesh)
+    record(mesh, "psum", axis, x0.shape, x0.dtype)
     return _group_sums(xs, mesh, axis)
 
 
@@ -110,31 +141,56 @@ def psum_scatter(xs: List[torch.Tensor], mesh: RadarMesh,
     group sum split in equal blocks along ``dim``, block ``p`` to the rank
     at axis index ``p``."""
     n = mesh.shape[axis]
-    size = xs[0].shape[dim]
+    x0 = local(xs, mesh)
+    size = x0.shape[dim]
     if size % n:
         raise ValueError(f"psum_scatter: dimension {dim} of size {size} does "
                          f"not split over {n} ranks")
-    shape = list(xs[0].shape)
+    shape = list(x0.shape)
     shape[dim] = size // n
-    record(mesh, "psum_scatter", axis, shape, xs[0].dtype)
+    record(mesh, "psum_scatter", axis, shape, x0.dtype)
     sums = _group_sums(xs, mesh, axis)
-    return [s.narrow(dim, mesh.axis_index(r, axis) * (size // n), size // n)
+    return [None if s is None else
+            s.narrow(dim, mesh.axis_index(r, axis) * (size // n), size // n)
             for r, s in enumerate(sums)]
+
+
+def exchange(xs: List[torch.Tensor], mesh: RadarMesh, pairs) -> dict:
+    """The payloads of ``pairs`` (sender rank, receiver rank) that cross a
+    process: this process sends ``xs`` of its senders and returns
+    {receiver: tensor} for its receivers, each on the receiver's device
+    (every rank's payload has the receiver's own shape and type)."""
+    sends, recvs = [], []
+    for s, r in sorted(pairs, key=lambda sr: sr[1]):
+        ps, pr = mesh.process_of(s), mesh.process_of(r)
+        if ps == pr:
+            continue
+        if ps == mesh.process_index:
+            sends.append((pr, r, xs[s]))
+        elif pr == mesh.process_index:
+            recvs.append((ps, r, xs[r]))
+    got = distributed.send_recv(sends, recvs) if sends or recvs else []
+    return {r: t for (_, r, _), t in zip(recvs, got)}
 
 
 def _ppermute(xs: List[torch.Tensor], mesh: RadarMesh, axis: str,
               step: int) -> List[torch.Tensor]:
     """Rank at axis index p receives the tensor of index p + step; zeros
     where that index is off the open chain."""
-    record(mesh, "permute", axis, xs[0].shape, xs[0].dtype)
+    x0 = local(xs, mesh)
+    record(mesh, "permute", axis, x0.shape, x0.dtype)
+    pairs = [(group[i + step], r) for group in mesh.groups(axis)
+             for i, r in enumerate(group) if 0 <= i + step < len(group)]
+    crossed = exchange(xs, mesh, pairs) if mesh.crosses(axis) else {}
+    src = {r: s for s, r in pairs}
     out: List = [None] * len(xs)
-    for group in mesh.groups(axis):
-        for i, r in enumerate(group):
-            j = i + step
-            if 0 <= j < len(group):
-                out[r] = xs[group[j]].to(xs[r].device, copy=True)
-            else:
-                out[r] = torch.zeros_like(xs[r])
+    for r in mesh.local_ranks:
+        if r in crossed:
+            out[r] = crossed[r]
+        elif r in src:
+            out[r] = xs[src[r]].to(xs[r].device, copy=True)
+        else:
+            out[r] = torch.zeros_like(xs[r])
     return out
 
 

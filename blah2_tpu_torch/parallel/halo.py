@@ -13,8 +13,9 @@ names so that a ``--halo-backend`` option passes through unchanged:
     reads each rank's slice where it lies, complex as it is. On one card
     a shift is one launch.
 
-A sharded value is a list with one tensor per rank of the mesh; the halo is
-taken along the last dimension, so a leading CPI batch rides along.
+A sharded value is a list with one tensor per rank of the mesh (None at the
+ranks of another process); the halo is taken along the last dimension, so a
+leading CPI batch rides along.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ def _shift(parts: List[torch.Tensor], mesh: RadarMesh, axis: str,
         return fn(parts, mesh, axis)
     if backend != "pallas":
         raise ValueError(f"unknown halo backend {backend!r}")
-    record(mesh, "permute", axis, parts[0].shape, parts[0].dtype)
+    p0 = parts[mesh.local_ranks[0]]
+    record(mesh, "permute", axis, p0.shape, p0.dtype)
     return halo_permute(parts, mesh, axis, to_left=from_next,
                         collective_id=collective_id, mask_edge=True)
 
@@ -48,8 +50,8 @@ def shift_from_next(vs: List[torch.Tensor], count: int, mesh: RadarMesh,
                     collective_id: int = 0) -> List[torch.Tensor]:
     """First ``count`` samples of the *next* rank's block (d ← d+1); zeros
     on the last rank of each ring (linear/zero-extended boundary)."""
-    return _shift([v[..., :count] for v in vs], mesh, axis, backend,
-                  collective_id, from_next=True)
+    return _shift([None if v is None else v[..., :count] for v in vs], mesh,
+                  axis, backend, collective_id, from_next=True)
 
 
 def shift_from_prev(vs: List[torch.Tensor], count: int, mesh: RadarMesh,
@@ -57,5 +59,5 @@ def shift_from_prev(vs: List[torch.Tensor], count: int, mesh: RadarMesh,
                     collective_id: int = 0) -> List[torch.Tensor]:
     """Last ``count`` samples of the *previous* rank's block (d ← d−1);
     zeros on rank 0 of each ring."""
-    return _shift([v[..., -count:] for v in vs], mesh, axis, backend,
-                  collective_id, from_next=False)
+    return _shift([None if v is None else v[..., -count:] for v in vs], mesh,
+                  axis, backend, collective_id, from_next=False)

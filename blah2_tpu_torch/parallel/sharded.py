@@ -1,10 +1,12 @@
 """The (cpi, pulse)-sharded CPI pipeline over logical ranks (counterpart of
 ``blah2_tpu/parallel/sharded.py``).
 
-One process runs every rank of a :class:`RadarMesh`, as JAX's
-``shard_map`` is single-controller; a sharded value is a list with one
-tensor per rank, and the collectives of ``parallel/collectives.py`` join
-the lists. The layout is the JAX module's:
+One process runs every rank of a :class:`RadarMesh` that it owns, as JAX's
+``shard_map`` runs every device of a process; a sharded value is a list
+with one tensor per rank (None at the ranks of another process, where the
+mesh spans a job of several), and the collectives of
+``parallel/collectives.py`` join the lists. The layout is the JAX
+module's:
 
   - input IQ ``(B, n_pad)``: the CPI batch split over ``cpi`` (each rank row
     holds B / n_cpi CPIs, the vmap of the JAX step written out as a batch
@@ -26,8 +28,9 @@ the lists. The layout is the JAX module's:
   - spectrum: local fold per rank, (n_spectrum,) partials psum'd; sub-CPI
     spectra (``process.spectrum.nSub`` > 1) the same with one masked fold
     per segment, psum'd as a (k, n_spectrum) stack;
-  - detection on the map gathered per CPI in rank order, outside the ranks.
-    JAX lets GSPMD partition that per-row work; the gather computes the same
+  - detection on the map gathered per cpi row in rank order, outside the
+    ranks, once per row on the process that owns the row's first rank. JAX
+    lets GSPMD partition that per-row work; the gather computes the same
     function. The fused detector, when asked for, runs whatever the CFAR
     kind, as the JAX module's ``use_pallas_detect`` does
     (`blah2_tpu/parallel/sharded.py:669`): it computes CA-CFAR.
@@ -36,7 +39,10 @@ Clutter correlations are linear (zero-extended), as in the JAX module: the
 sharded pipeline matches the single-device ``CpiPipeline`` in
 ``clutter_mode="linear"``. The pulse count is zero-padded to a multiple of
 the pulse-axis size with phantom pulses whose DFT columns are zero.
-Constants and outputs live on rank 0's device.
+Constants and outputs live on the device of this process's first rank; over
+several processes every process ends a step with the whole batch's
+products, gathered over the processes as JAX's ``process_allgather``
+(``blah2_tpu/runtime/radar.py:798-815``) gives them.
 """
 
 from __future__ import annotations
@@ -62,7 +68,9 @@ from blah2_tpu_torch.dsp.pipeline import CpiOutputs
 from blah2_tpu_torch.dsp.spectrum import SpectrumAnalyser
 from blah2_tpu_torch.ops.detect import FusedDetector
 from blah2_tpu_torch.ops.halo import halo_permute
-from blah2_tpu_torch.parallel.collectives import psum, psum_scatter
+from blah2_tpu_torch.parallel import distributed
+from blah2_tpu_torch.parallel.collectives import (gather_ranks, psum,
+                                                  psum_scatter)
 from blah2_tpu_torch.parallel.halo import (BACKENDS, shift_from_next,
                                            shift_from_prev)
 from blah2_tpu_torch.parallel.mesh import RadarMesh
@@ -88,6 +96,60 @@ def pick_local_segments(block_len: int, n_lags: int,
 
 def _stack_detections(dets: List[CfarDetections]) -> CfarDetections:
     return CfarDetections(*[torch.stack(f) for f in zip(*dets)])
+
+
+def _fields(out: CpiOutputs) -> list:
+    """The products' tensors in a fixed order (the detections' fields in
+    place of the tuple; an absent sub_spectra_db as None)."""
+    return [out.db_map, out.noise_power, out.max_power, out.spectrum_db,
+            out.clutter_ok, *out.detections, out.sub_spectra_db]
+
+
+def _outputs(fields: list) -> CpiOutputs:
+    n = len(CfarDetections._fields)
+    return CpiOutputs(*fields[:5], detections=CfarDetections(*fields[5:5 + n]),
+                      sub_spectra_db=fields[5 + n])
+
+
+def _gather_products(out: Optional[CpiOutputs], counts: List[int],
+                     spec: list, home: torch.device) -> CpiOutputs:
+    """Every process's products of the CPIs it detected (``counts[p]`` of
+    them in process p, in row order), joined in process order: one
+    all-gather of the fields as bytes, each CPI's bytes of a field padded
+    to 8 and each field given room for the most CPIs a process holds.
+    ``spec`` gives each field's per-CPI shape and dtype (None: absent)."""
+    most = max(counts)
+    nbytes = [0 if f is None else
+              int(np.prod(f[0], dtype=np.int64)) * f[1].itemsize
+              for f in spec]
+    room = [-(-n // 8) * 8 for n in nbytes]
+    buf = torch.zeros(most * sum(room), dtype=torch.uint8, device=home)
+    off = 0
+    for k, t in enumerate(_fields(out) if out is not None else spec):
+        if out is not None and nbytes[k]:
+            n = t.shape[0]
+            buf[off:off + n * room[k]].view(n, room[k])[:, :nbytes[k]] = \
+                t.contiguous().view(n, -1).view(torch.uint8)
+        off += most * room[k]
+    parts = distributed.all_gather(buf)
+    joined = []
+    off = 0
+    for k, f in enumerate(spec):
+        if f is None:
+            joined.append(None)
+            continue
+        shape, dtype = f
+        per = []
+        for part, n in zip(parts, counts):
+            if n == 0:
+                continue
+            raw = part[off:off + n * room[k]].view(n, room[k])[:, :nbytes[k]]
+            per.append(raw.contiguous().view(dtype).reshape(
+                (n,) + tuple(shape)) if nbytes[k] else
+                torch.empty((n,) + tuple(shape), dtype=dtype, device=home))
+        joined.append(torch.cat(per))
+        off += most * room[k]
+    return _outputs(joined)
 
 
 class ShardedCpiPipeline(nn.Module):
@@ -119,7 +181,7 @@ class ShardedCpiPipeline(nn.Module):
         self.mesh = mesh
         self.dtype = dtype
         self.halo_backend = halo_backend
-        self.device = device = mesh.devices[0]
+        self.device = device = mesh.device
         self.n_pulse_axis = mesh.shape["pulse"]
         self.n_cpi_axis = mesh.shape["cpi"]
         proc, cap = config.process, config.capture
@@ -272,6 +334,9 @@ class ShardedCpiPipeline(nn.Module):
         # The ranks of one device run the NLMS recursion as one batched
         # scan (False: each rank's in turn; the same arithmetic).
         self.nlms_batch_ranks = True
+        # Over several processes: the per-CPI fields of the products, by
+        # (CPIs a row, CPIs per process).
+        self._product_spec: dict = {}
 
         self.detection_enabled = proc.detection.enable
         self.fused_detector = None
@@ -294,6 +359,14 @@ class ShardedCpiPipeline(nn.Module):
         """A state constant on ``dev`` (a copy where it is not rank 0's)."""
         return getattr(self, name).to(dev)
 
+    def _per_rank(self, fn, *lists) -> list:
+        """``fn(rank, *its values)`` at this process's ranks, None at the
+        others'."""
+        out: list = [None] * self.mesh.size
+        for r in self.mesh.local_ranks:
+            out[r] = fn(r, *(v[r] for v in lists))
+        return out
+
     def _shift(self, vs: Ranks, count: int, from_next: bool,
                cid: int) -> Ranks:
         fn = shift_from_next if from_next else shift_from_prev
@@ -306,14 +379,15 @@ class ShardedCpiPipeline(nn.Module):
         global end)."""
         h = self.nb - 1
         halo_next = self._shift(vs, h, True, cid)
-        out = []
-        for v, nxt in zip(vs, halo_next):
+
+        def one(r, v, nxt):
             main = v.reshape(v.shape[0], self.n_seg_local, self.seg_len)
             tails = nxt[:, None, :]
             if self.n_seg_local > 1:
                 tails = torch.cat([main[:, 1:, :h], tails], dim=1)
-            out.append(torch.cat([main, tails], dim=-1))
-        return out
+            return torch.cat([main, tails], dim=-1)
+
+        return self._per_rank(one, vs, halo_next)
 
     def _linear_shift(self, xs: Ranks) -> Ranks:
         """xs[i] = x[i − delay_min] with zero extension at the CPI's ends;
@@ -321,12 +395,12 @@ class ShardedCpiPipeline(nn.Module):
         s = self.clutter_delay_min
         if s < 0:
             inc = self._shift(xs, -s, True, 2)
-            return [torch.cat([x[..., -s:], i], dim=-1)
-                    for x, i in zip(xs, inc)]
+            return self._per_rank(
+                lambda r, x, i: torch.cat([x[..., -s:], i], dim=-1), xs, inc)
         if s > 0:
             inc = self._shift(xs, s, False, 2)
-            return [torch.cat([i, x[..., :-s]], dim=-1)
-                    for x, i in zip(xs, inc)]
+            return self._per_rank(
+                lambda r, x, i: torch.cat([i, x[..., :-s]], dim=-1), xs, inc)
         return xs
 
     def _grouped(self, fn, batch: bool, *inputs: Ranks) -> list:
@@ -335,8 +409,9 @@ class ShardedCpiPipeline(nn.Module):
         launch of each op for the device's ranks), else once per rank.
         Returns, per rank, ``fn``'s outputs."""
         groups: dict = {}
-        for r, t in enumerate(inputs[0]):
-            groups.setdefault(t.device if batch else r, []).append(r)
+        for r in self.mesh.local_ranks:
+            groups.setdefault(inputs[0][r].device if batch else r,
+                              []).append(r)
         out: list = [None] * len(inputs[0])
         for ranks in groups.values():
             res = fn(*[torch.stack([v[r] for r in ranks]) for v in inputs])
@@ -352,36 +427,39 @@ class ShardedCpiPipeline(nn.Module):
 
         xs_ext = self._segments_right_halo(xs_loc, cid=0)
         y_ext = self._segments_right_halo(ys, cid=1)
-        xs_seg = [x.reshape(x.shape[0], self.n_seg_local, self.seg_len)
-                  for x in xs_loc]
-        spec_a, spec_b = [], []
-        for xe, ye, xg in zip(xs_ext, y_ext, xs_seg):
+        xs_seg = self._per_rank(
+            lambda r, x: x.reshape(x.shape[0], self.n_seg_local,
+                                   self.seg_len), xs_loc)
+
+        def spectra(r, xe, ye, xg):
             xf_seg = torch.conj(torch.fft.fft(xg, n=f, dim=-1))
             ext_f = torch.fft.fft(torch.stack([xe, ye]), n=f, dim=-1)
-            acc = torch.sum(ext_f * xf_seg[None], dim=-2)
-            spec_a.append(acc[0])
-            spec_b.append(acc[1])
-        spec_a = psum(spec_a, mesh, "pulse")
-        spec_b = psum(spec_b, mesh, "pulse")
+            return torch.sum(ext_f * xf_seg[None], dim=-2)
+
+        acc = self._per_rank(spectra, xs_ext, y_ext, xs_seg)
+        spec_a = psum(self._per_rank(lambda r, a: a[0], acc), mesh, "pulse")
+        spec_b = psum(self._per_rank(lambda r, a: a[1], acc), mesh, "pulse")
 
         # Replicated Toeplitz solve, once per device and cpi row.
         solved: dict = {}
-        weights, oks = [], []
-        for r in range(mesh.size):
-            key = (mesh.axis_index(r, "cpi"), spec_a[r].device)
+
+        def solve(r, sa, sb):
+            key = (mesh.axis_index(r, "cpi"), sa.device)
             if key not in solved:
-                a = torch.conj(torch.fft.ifft(spec_a[r], dim=-1)[..., :nb])
-                b = torch.fft.ifft(spec_b[r], dim=-1)[..., :nb]
+                a = torch.conj(torch.fft.ifft(sa, dim=-1)[..., :nb])
+                b = torch.fft.ifft(sb, dim=-1)[..., :nb]
                 solved[key] = solve_normal_equations(a, b, self.diag_load)
-            w, ok = solved[key]
-            weights.append(w)
-            oks.append(ok)
+            return solved[key]
+
+        sols = self._per_rank(solve, spec_a, spec_b)
+        oks = self._per_rank(lambda r, wo: wo[1], sols)
 
         # Overlap-save FIR: left halo from the previous rank.
         h = nb - 1
         halo_prev = self._shift(xs_loc, h, False, 3)
-        out = []
-        for y, xg, hp, w, ok in zip(ys, xs_seg, halo_prev, weights, oks):
+
+        def fir(r, y, xg, hp, wo):
+            w, ok = wo
             heads = hp[:, None, :]
             if self.n_seg_local > 1:
                 heads = torch.cat([heads, xg[:, :-1, self.seg_len - h:]],
@@ -391,8 +469,9 @@ class ShardedCpiPipeline(nn.Module):
             conv = torch.fft.ifft(torch.fft.fft(ext, n=f, dim=-1)
                                   * wf[:, None, :], dim=-1)
             filt = conv[..., h:h + self.seg_len].reshape(y.shape)
-            out.append(torch.where(ok[:, None], y - filt, y))
-        return out, oks
+            return torch.where(ok[:, None], y - filt, y)
+
+        return self._per_rank(fir, ys, xs_seg, halo_prev, sols), oks
 
     def _clutter_block_ecab(self, xs: Ranks, ys: Ranks):
         """Per-rank ECA-B (the sharded form of ``EcaBFilter``): every
@@ -404,16 +483,18 @@ class ShardedCpiPipeline(nn.Module):
         xs_loc = self._linear_shift(xs)
         halo_next = self._shift(xs_loc, h, True, 0)
         halo_prev = self._shift(xs_loc, h, False, 1)
-        exts, segs, ybs = [], [], []
-        for x, y, nxt, prv in zip(xs_loc, ys, halo_next, halo_prev):
-            main = x.reshape(x.shape[0], S, L)
+        segs = self._per_rank(lambda r, x: x.reshape(x.shape[0], S, L),
+                              xs_loc)
+        ybs = self._per_rank(lambda r, y: y.reshape(y.shape[0], S, L), ys)
+
+        def extend(r, main, nxt, prv):
             tails, heads = nxt[:, None], prv[:, None]
             if S > 1:
                 tails = torch.cat([main[:, 1:, :h], tails], dim=1)
                 heads = torch.cat([heads, main[:, :-1, L - h:]], dim=1)
-            exts.append(torch.cat([heads, main, tails], dim=-1))
-            segs.append(main)
-            ybs.append(y.reshape(y.shape[0], S, L))
+            return torch.cat([heads, main, tails], dim=-1)
+
+        exts = self._per_rank(extend, segs, halo_next, halo_prev)
 
         def solve(ext, seg, yb):
             res, ok = ecab_residual(
@@ -422,9 +503,10 @@ class ShardedCpiPipeline(nn.Module):
             return res.reshape(res.shape[:-2] + (S * L,)), ok.all(-1)
 
         out = self._grouped(solve, True, exts, segs, ybs)
-        fails = psum([(~ok).to(torch.int32) for _, ok in out], self.mesh,
-                     "pulse")
-        return [y2 for y2, _ in out], [f == 0 for f in fails]
+        fails = psum(self._per_rank(lambda r, o: (~o[1]).to(torch.int32),
+                                    out), self.mesh, "pulse")
+        return (self._per_rank(lambda r, o: o[0], out),
+                self._per_rank(lambda r, f: f == 0, fails))
 
     def _clutter_block_nlms(self, xs: Ranks, ys: Ranks):
         """Per-rank block NLMS (the rank-local form of
@@ -440,21 +522,22 @@ class ShardedCpiPipeline(nn.Module):
         halo_x = self._shift(xs_loc, (W + 1) * L, False, 3)
         halo_y = self._shift(ys, W * L, False, 4) if W > 0 else None
         pad = K * L - blk
-        inputs = {"X": [], "yk": [], "Xw": [], "yw": []}
-        for r, (x, y, hx) in enumerate(zip(xs_loc, ys, halo_x)):
+        inputs = {k: [None] * self.mesh.size for k in ("X", "yk", "Xw", "yw")}
+        for r in self.mesh.local_ranks:
+            x, y, hx = xs_loc[r], ys[r], halo_x[r]
             b = x.shape[0]
             body = torch.nn.functional.pad(x, (0, pad))
             lead = torch.cat([hx[:, -L:], body[:, :-L]], dim=-1)
-            inputs["X"].append(torch.fft.fft(torch.cat(
+            inputs["X"][r] = torch.fft.fft(torch.cat(
                 [lead.reshape(b, K, L), body.reshape(b, K, L)], dim=-1),
-                dim=-1))
-            inputs["yk"].append(torch.nn.functional.pad(
-                y, (0, pad)).reshape(b, K, L))
+                dim=-1)
+            inputs["yk"][r] = torch.nn.functional.pad(
+                y, (0, pad)).reshape(b, K, L)
             if W > 0:
-                inputs["Xw"].append(torch.fft.fft(torch.cat(
+                inputs["Xw"][r] = torch.fft.fft(torch.cat(
                     [hx[:, :-L].reshape(b, W, L),
-                     hx[:, L:].reshape(b, W, L)], dim=-1), dim=-1))
-                inputs["yw"].append(halo_y[r].reshape(b, W, L))
+                     hx[:, L:].reshape(b, W, L)], dim=-1), dim=-1)
+                inputs["yw"][r] = halo_y[r].reshape(b, W, L)
         rd = real_dtype(self.dtype)
         consts = (self.nlms_mu, self.nlms_beta, self.nlms_eps)
 
@@ -475,16 +558,18 @@ class ShardedCpiPipeline(nn.Module):
                             *[inputs[k] for k in names])
         # The CPI's pad region stays zero (the other filters output w·xs = 0
         # there; NLMS's −ŷ is not zero where a block straddles the edge).
-        y2 = []
-        for r, (e,) in enumerate(out):
+        def trim(r, o):
+            e = o[0]
             start = self.mesh.axis_index(r, "pulse") * blk
             keep = max(0, min(blk, n - start))
             if keep < blk:
                 e = torch.cat([e[:, :keep], e.new_zeros(
                     (e.shape[0], blk - keep))], dim=-1)
-            y2.append(e)
-        return y2, [torch.ones(y.shape[0], dtype=torch.bool, device=y.device)
-                    for y in ys]
+            return e
+
+        return self._per_rank(trim, out), self._per_rank(
+            lambda r, y: torch.ones(y.shape[0], dtype=torch.bool,
+                                    device=y.device), ys)
 
     def _ambiguity_block(self, xs: Ranks, ys: Ranks) -> Ranks:
         """Per-rank range and Doppler stages, reduced over pulse: the full
@@ -492,8 +577,8 @@ class ShardedCpiPipeline(nn.Module):
         amb = self.ambiguity
         nc, nfft = amb.n_corr, amb.nfft_compute
         ndp_l = self.nd_pad // self.n_pulse_axis
-        partials = []
-        for r, (x, y) in enumerate(zip(xs, ys)):
+
+        def partial(r, x, y):
             d = self.mesh.axis_index(r, "pulse")
             dev = x.device
             if self._ramp_pad is not None:
@@ -505,7 +590,9 @@ class ShardedCpiPipeline(nn.Module):
             z = torch.fft.ifft(yf * torch.conj(xf), dim=-1)
             c = torch.index_select(z, 2, amb._lags.to(dev))
             w_blk = self._const("_w_pad", dev)[:, d * ndp_l:(d + 1) * ndp_l]
-            partials.append(torch.matmul(w_blk, c))
+            return torch.matmul(w_blk, c)
+
+        partials = self._per_rank(partial, xs, ys)
         if self._row_shard:
             return psum_scatter(partials, self.mesh, "pulse", dim=1)
         return psum(partials, self.mesh, "pulse")
@@ -514,62 +601,98 @@ class ShardedCpiPipeline(nn.Module):
     def forward(self, xbp: Ranks, ybp: Ranks) -> CpiOutputs:
         """One step on the per-rank (B / n_cpi, block_len, 2) real/imag
         planes that :meth:`shard_inputs` makes. Products have the whole
-        batch B as their leading dimension, on rank 0's device."""
+        batch B as their leading dimension, on the device of this process's
+        first rank."""
         mesh, home = self.mesh, self.device
-        xs = [complex_of_parts(p[..., 0], p[..., 1], self.dtype) for p in xbp]
-        ys = [complex_of_parts(p[..., 0], p[..., 1], self.dtype) for p in ybp]
+        xs = self._per_rank(lambda r, p: complex_of_parts(
+            p[..., 0], p[..., 1], self.dtype), xbp)
+        ys = self._per_rank(lambda r, p: complex_of_parts(
+            p[..., 0], p[..., 1], self.dtype), ybp)
         if self.clutter_enabled:
             block = {"eca-b": self._clutter_block_ecab,
                      "nlms": self._clutter_block_nlms}.get(
                          self.clutter_kind, self._clutter_block)
             ys, oks = block(xs, ys)
         else:
-            oks = [torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
-                   for x in xs]
+            oks = self._per_rank(lambda r, x: torch.ones(
+                x.shape[0], dtype=torch.bool, device=x.device), xs)
         zs = self._ambiguity_block(xs, ys)
-        folds = psum([
-            self.spectrum.fold_partial(
+        folds = psum(self._per_rank(
+            lambda r, x: self.spectrum.fold_partial(
                 x, mesh.axis_index(r, "pulse") * self.block_len,
-                self._const("_spec_tw_pad", x.device))
-            for r, x in enumerate(xs)], mesh, "pulse")
+                self._const("_spec_tw_pad", x.device)), xs), mesh, "pulse")
         subs = None
         if self.spectrum_sub is not None:
             seg = self._sub_seg_len
-            subs = []
-            for r, x in enumerate(xs):
+
+            def sub_folds(r, x):
                 off = mesh.axis_index(r, "pulse") * self.block_len
                 tw = self._const("_sub_tw_pad", x.device)
-                subs.append(torch.stack([
+                return torch.stack([
                     self.spectrum_sub.fold_partial(
                         x, off, tw[s], bucket_origin=s * seg)
-                    for s in range(self.n_spectrum_sub)], dim=1))
-            subs = psum(subs, mesh, "pulse")
+                    for s in range(self.n_spectrum_sub)], dim=1)
 
-        # Gather per cpi row, in rank order, onto rank 0's device.
+            subs = psum(self._per_rank(sub_folds, xs), mesh, "pulse")
+
+        # Gather per cpi row, in rank order, onto this process's first
+        # rank's device, for the rows whose first rank is here: a row-sharded
+        # map from every rank of the row (over the processes where a row
+        # spans several), else the psum'd map of the row's first rank.
         nd = self.ambiguity.n_doppler_bins
-        z_rows, ok_rows, fold_rows, sub_rows = [], [], [], []
-        for group in mesh.groups("pulse"):
-            if self._row_shard:
-                z = torch.cat([zs[r].to(home) for r in group], dim=1)[:, :nd]
-            else:
-                z = zs[group[0]].to(home)
-            z_rows.append(z)
-            ok_rows.append(oks[group[0]].to(home))
-            fold_rows.append(folds[group[0]].to(home))
+        if self._row_shard and mesh.crosses("pulse"):
+            zs = gather_ranks(zs, mesh)
+        rows = [g for g in mesh.groups("pulse") if mesh.is_local(g[0])]
+        out = None
+        if rows:
+            z_rows, ok_rows, fold_rows, sub_rows = [], [], [], []
+            for group in rows:
+                if self._row_shard:
+                    z = torch.cat([zs[r].to(home) for r in group],
+                                  dim=1)[:, :nd]
+                else:
+                    z = zs[group[0]].to(home)
+                z_rows.append(z)
+                ok_rows.append(oks[group[0]].to(home))
+                fold_rows.append(folds[group[0]].to(home))
+                if subs is not None:
+                    sub_rows.append(subs[group[0]].to(home))
+            z = torch.cat(z_rows)
+            clutter_ok = torch.cat(ok_rows)
+            spec_db = SpectrumAnalyser.to_db(
+                self.spectrum.finish(torch.cat(fold_rows)))
+            sub_db = None
             if subs is not None:
-                sub_rows.append(subs[group[0]].to(home))
-        z = torch.cat(z_rows)
-        clutter_ok = torch.cat(ok_rows)
-        spec_db = SpectrumAnalyser.to_db(
-            self.spectrum.finish(torch.cat(fold_rows)))
-        sub_db = None
-        if subs is not None:
-            sub_db = SpectrumAnalyser.to_db(
-                self.spectrum_sub.finish(torch.cat(sub_rows)))
-        db, noise, max_power, det = self._detect(z)
-        return CpiOutputs(db_map=db, noise_power=noise, max_power=max_power,
-                          spectrum_db=spec_db, clutter_ok=clutter_ok,
-                          detections=det, sub_spectra_db=sub_db)
+                sub_db = SpectrumAnalyser.to_db(
+                    self.spectrum_sub.finish(torch.cat(sub_rows)))
+            db, noise, max_power, det = self._detect(z)
+            out = CpiOutputs(db_map=db, noise_power=noise,
+                             max_power=max_power, spectrum_db=spec_db,
+                             clutter_ok=clutter_ok, detections=det,
+                             sub_spectra_db=sub_db)
+        if mesh.process_count == 1:
+            return out
+        return self._gather_over_processes(
+            out, xbp[mesh.local_ranks[0]].shape[0])
+
+    def _gather_over_processes(self, out: Optional[CpiOutputs],
+                               b_loc: int) -> CpiOutputs:
+        """The whole batch's products in every process, from the rows each
+        process detected (``b_loc`` CPIs a row)."""
+        mesh = self.mesh
+        counts = [0] * mesh.process_count
+        for group in mesh.groups("pulse"):
+            counts[mesh.process_of(group[0])] += b_loc
+        key = (b_loc, tuple(counts))
+        if self._product_spec.get(key) is None:
+            # Process 0 always holds row 0; its products give the fields'
+            # shapes and types to the processes that hold no row.
+            spec = None if out is None else [
+                None if t is None else (tuple(t.shape[1:]), t.dtype)
+                for t in _fields(out)]
+            self._product_spec[key] = distributed.broadcast_object(spec, 0)
+        return _gather_products(out, counts, self._product_spec[key],
+                                self.device)
 
     def _detect(self, z: torch.Tensor):
         """Map metrics and detections of the (B, nr, nc) batch."""
@@ -601,7 +724,9 @@ class ShardedCpiPipeline(nn.Module):
         """Pad (B, n_samples) complex arrays (NumPy or tensors) to n_pad and
         split them over the ranks: per rank (B / n_cpi, block_len, 2) real
         and imaginary planes on the rank's device, float32 (float64 for a
-        complex128 pipeline)."""
+        complex128 pipeline). Over several processes every process holds
+        the same full host batch and places only its own ranks' blocks
+        (None at the others'), as JAX's ``make_array_from_callback``."""
         def host(a):
             if isinstance(a, torch.Tensor):
                 a = a.detach().cpu().numpy()
@@ -625,12 +750,13 @@ class ShardedCpiPipeline(nn.Module):
 
         def place(a):
             planes = np.stack([a.real, a.imag], axis=-1).astype(plane)
-            out = []
-            for r, dev in enumerate(self.mesh.devices):
+            out = [None] * self.mesh.size
+            for r in self.mesh.local_ranks:
                 c, p = self.mesh.coords(r)
                 blk = planes[c * b_loc:(c + 1) * b_loc,
                              p * self.block_len:(p + 1) * self.block_len]
-                out.append(torch.from_numpy(np.ascontiguousarray(blk)).to(dev))
+                out[r] = torch.from_numpy(np.ascontiguousarray(blk)).to(
+                    self.mesh.devices[r])
             return out
 
         return place(xb), place(yb)
@@ -638,14 +764,15 @@ class ShardedCpiPipeline(nn.Module):
 
 def calibrate_row_shard(config: Config, mesh: RadarMesh, n_trials: int = 3,
                         **pipeline_kw) -> dict:
-    """Measure both Doppler-output layouts on THIS mesh and pick the winner
-    (the single-process form of the JAX function).
+    """Measure both Doppler-output layouts on THIS mesh and pick the winner.
 
     Runs one step per layout per trial on random planes (the first call
     excluded; best of ``n_trials``) and returns ``{"row_shard": bool,
-    "ms_on": .., "ms_off": .., "pipeline": <the winning pipeline>}``. The
-    small fetch that ends each step is where the halo kernel's error word
-    is read."""
+    "ms_on": .., "ms_off": .., "pipeline": <the winning pipeline>}``. Each
+    process times its local completion by the small fetch that ends each
+    step; over several processes every process takes process 0's decision
+    (per-process timings can disagree), so all run the same program. The
+    halo kernel's error word is read after the trials."""
     rng = np.random.default_rng(0)
     b = mesh.shape["cpi"]
     ms: dict = {}
@@ -667,5 +794,7 @@ def calibrate_row_shard(config: Config, mesh: RadarMesh, n_trials: int = 3,
         ms[name] = best
     halo_permute.check()
     ms["row_shard"] = ms["ms_on"] <= ms["ms_off"]
+    if mesh.process_count > 1:
+        ms["row_shard"] = bool(distributed.broadcast_object(ms["row_shard"]))
     ms["pipeline"] = pipes[ms["row_shard"]]
     return ms

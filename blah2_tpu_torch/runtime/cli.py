@@ -6,11 +6,19 @@ Mirrors the reference binary's interface ``blah2 -c config.yml``
 limits, in-process vs TCP API wiring, and a web root for the display layer.
 The runtime runs on the card unless ``--device cpu`` asks for the host; with
 no card it exits non-zero. ``--mesh CPIxPULSE`` runs the sharded pipeline
-over that many logical ranks in this process: on the CPU with ``--device
-cpu``, else on the visible cards in rank order, several ranks to a card
-when there are fewer cards than ranks (``--mesh 1x4`` runs on one card).
-Multi-process runs are not ported: their flags are parsed and refused
-(ROADMAP.md queue 1 item 4).
+over that many logical ranks: on the CPU with ``--device cpu``, else on
+the process's cards in rank order, several ranks to a card when there are
+fewer cards than ranks (``--mesh 1x4`` runs on one card).
+
+Multi-process and multi-host runs: ``--coordinator host:port
+--num-processes N --process-id K`` (or ``BLAH2_COORDINATOR``,
+``BLAH2_NUM_PROCESSES``, ``BLAH2_PROCESS_ID``; ``--coordinator auto`` takes
+torchrun's environment) on each of N processes. Each initialises
+``torch.distributed`` before anything touches a card, prints one
+``distributed:`` line (its cards and the backend, chosen from the job's
+layout: NCCL where every process computes on cards of its own, else gloo),
+and ``--mesh CPIxPULSE`` then builds one mesh over every process's ranks.
+Only process 0 serves the API.
 """
 
 from __future__ import annotations
@@ -82,32 +90,29 @@ def main(argv=None) -> int:
                         choices=("auto", "on", "off", "calibrate"),
                         help="mesh-mode Doppler-output layout (calibrate: "
                              "time both on the mesh and keep the faster)")
-    # Multi-process runs: parsed so that a command line of the JAX runtime
-    # is understood, and refused (not ported).
     parser.add_argument("--coordinator", default=None,
-                        help="not ported: ROADMAP.md queue 1 item 4")
+                        help="multi-process: coordinator host:port (or "
+                             "'auto' for torchrun's environment); also via "
+                             "BLAH2_COORDINATOR")
     parser.add_argument("--num-processes", type=int, default=None,
-                        help="not ported: ROADMAP.md queue 1 item 4")
+                        help="multi-process: total process count "
+                             "(BLAH2_NUM_PROCESSES)")
     parser.add_argument("--process-id", type=int, default=None,
-                        help="not ported: ROADMAP.md queue 1 item 4")
+                        help="multi-process: this process's index "
+                             "(BLAH2_PROCESS_ID)")
     parser.add_argument("--quiet", action="store_true")
     args = parser.parse_args(argv)
 
-    from blah2_tpu_torch.runtime.radar import MESH_NOT_PORTED
-
-    refused = [flag for flag, value in (
-        ("--coordinator", args.coordinator),
-        ("--num-processes", args.num_processes),
-        ("--process-id", args.process_id)) if value is not None]
-    if refused:
-        print(f"blah2_tpu_torch: {', '.join(refused)}: {MESH_NOT_PORTED}",
-              file=sys.stderr)
-        return 2
-
     from blah2_tpu_torch.device import resolve_device
+    from blah2_tpu_torch.parallel import distributed
 
     mesh = None
     try:
+        # First of all: in a job, the process's cards follow from the
+        # layout that the initialisation publishes.
+        multiprocess = distributed.maybe_initialize(
+            args.coordinator, args.num_processes, args.process_id,
+            device=args.device)
         device = resolve_device(args.device)
         if args.mesh:
             from blah2_tpu_torch.parallel.mesh import RadarMesh, rank_devices
@@ -117,10 +122,15 @@ def main(argv=None) -> int:
                                   args.mesh.lower().split("x"))
             except ValueError:
                 parser.error(f"--mesh must look like 2x4, got {args.mesh!r}")
+            n_local, extra = divmod(n_cpi * n_pulse,
+                                    distributed.process_count())
+            if extra:
+                parser.error(f"--mesh {args.mesh} does not split over "
+                             f"{distributed.process_count()} processes")
             mesh = RadarMesh(n_cpi, n_pulse,
-                             rank_devices(n_cpi * n_pulse, args.device))
-            device = mesh.devices[0]
-    except RuntimeError as e:
+                             rank_devices(n_local, args.device))
+            device = mesh.device
+    except (RuntimeError, ValueError) as e:
         print(e, file=sys.stderr)
         return 2
 
@@ -128,6 +138,9 @@ def main(argv=None) -> int:
     from blah2_tpu_torch.runtime.radar import RadarRuntime
 
     config = load_config(args.config)
+    if multiprocess and distributed.process_index() != 0:
+        # One API and egress owner per job: the other processes compute.
+        args.no_api = True
 
     api_server = None
     if not args.no_api:
@@ -174,6 +187,7 @@ def main(argv=None) -> int:
         runtime.stop()
         if api_server is not None:
             api_server.stop()
+    distributed.shutdown()
     return 0
 
 

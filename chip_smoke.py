@@ -26,17 +26,12 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
-
-# The smoke drives one card, the first this process may see; it hides the
-# others, so the device count it reports is the card it ran on.
-_visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-os.environ["CUDA_VISIBLE_DEVICES"] = \
-    "0" if _visible is None else _visible.split(",")[0]
 
 # H100 SXM memory rate and float32 (non-tensor-core) peak, NVIDIA data sheet.
 HBM_BYTES_PER_S = 3.35e12
@@ -1584,16 +1579,15 @@ RUNTIME_MESH_LIMITS_DB = {"clutter lags": 1.15, "deeper cells": 0.64,
                           "rest": 0.02}
 
 
-def phase_runtime_mesh(dev, root, card):
+def phase_runtime_mesh(dev, root, card, tmp):
     """The runtime in mesh mode, 1 × 4 logical ranks on the card with the
-    halo kernel, on the looped replay of phase_runtime's three windows:
-    10 product sets in order, the halo launches, each map against the
-    single-device pipeline's map of the same window in linear clutter mode
-    (the sharded path's function; the single-device runtime's circular
-    correlations differ from it by O(n_bins/n), which is printed), and
-    the cpi and latency medians."""
-    import tempfile
-
+    halo kernel, on the looped replay of phase_runtime's three windows
+    (recorded into ``tmp``): 10 product sets in order, the halo launches,
+    each map against the single-device pipeline's map of the same window in
+    linear clutter mode (the sharded path's function; the single-device
+    runtime's circular correlations differ from it by O(n_bins/n), which is
+    printed), and the cpi and latency medians. Returns the halo launches,
+    the printed line, the replay's file and the map products."""
     import torch
 
     from blah2_tpu_torch.capture.source import Source
@@ -1620,37 +1614,36 @@ def phase_runtime_mesh(dev, root, card):
         rt._emit_products = keep
         return outs
 
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = config("")
-        src = Source("RspDuo", cfg.capture.fs, cfg.capture.fc, path=tmp)
-        fname = src.open_record_file()
-        linear = CpiPipeline(cfg, clutter_mode="linear", device=dev)
-        refs = []
-        for seed in (11, 12, 13):
-            q, _ = default_scene(cfg, seed)
-            src.record(q[:, 0] + 1j * q[:, 1], q[:, 2] + 1j * q[:, 3])
-            out = linear.call_quad(q)
-            refs.append((out.db_map.cpu().numpy(), float(out.noise_power)))
-        src.close_record_file()
-        cfg = config(fname)
+    cfg = config("")
+    src = Source("RspDuo", cfg.capture.fs, cfg.capture.fc, path=tmp)
+    fname = src.open_record_file()
+    linear = CpiPipeline(cfg, clutter_mode="linear", device=dev)
+    refs = []
+    for seed in (11, 12, 13):
+        q, _ = default_scene(cfg, seed)
+        src.record(q[:, 0] + 1j * q[:, 1], q[:, 2] + 1j * q[:, 3])
+        out = linear.call_quad(q)
+        refs.append((out.db_map.cpu().numpy(), float(out.noise_power)))
+    src.close_record_file()
+    cfg = config(fname)
 
-        single = RadarRuntime(cfg, staged_sample_every=0, device=dev)
-        single_outs = keep_outputs(single)
-        single.start_capture()
-        run_bounded(single, 3, 300.0)
+    single = RadarRuntime(cfg, staged_sample_every=0, device=dev)
+    single_outs = keep_outputs(single)
+    single.start_capture()
+    run_bounded(single, 3, 300.0)
 
-        stub = StubApi()
-        rt = RadarRuntime(cfg, api_server=stub, mesh=one_card_mesh(
-            dev, (1, 4)), halo_backend="pallas")
-        stub.rt = rt
-        check(rt.cpi_batch == 1 and rt.sharded is not None, "mesh runtime")
-        outs = keep_outputs(rt)
-        rt.start_capture()
-        # The mesh runtime's main path: counts at 0 just before, read after.
-        halo_permute.launches = 0
-        wall = run_bounded(rt, RUNTIME_MESH_CPIS, 300.0)
-        torch.cuda.synchronize()
-        launches = halo_permute.launches
+    stub = StubApi()
+    rt = RadarRuntime(cfg, api_server=stub, mesh=one_card_mesh(
+        dev, (1, 4)), halo_backend="pallas")
+    stub.rt = rt
+    check(rt.cpi_batch == 1 and rt.sharded is not None, "mesh runtime")
+    outs = keep_outputs(rt)
+    rt.start_capture()
+    # The mesh runtime's main path: counts at 0 just before, read after.
+    halo_permute.launches = 0
+    wall = run_bounded(rt, RUNTIME_MESH_CPIS, 300.0)
+    torch.cuda.synchronize()
+    launches = halo_permute.launches
 
     n = RUNTIME_MESH_CPIS
     maps = [json.loads(v) for p, v, _ in stub.log if p == "map"]
@@ -1690,10 +1683,283 @@ def phase_runtime_mesh(dev, root, card):
             "vs_single_runtime_db": circular,
             "card": card}
     print("runtime_mesh " + json.dumps(line))
-    return launches, line
+    return launches, line, fname, maps
+
+
+# Two processes of two ranks each on the one card (a 1 x 4 mesh split
+# 2 + 2): their group is gloo, the halo kernel serves the pairs inside each
+# process and the process group the pair that crosses.
+MP_PROCESSES = 2
+MP_STEPS = 3
+MP_RUNTIME_CPIS = 8
+# Per masked shift of the 1 x 4 mesh split 2 + 2: pairs by route, summed
+# over the processes (the masked edge moves no payload).
+MP_PAIRS_PER_SHIFT = {"kernel": 2, "ipc": 0, "group": 1}
+MP_SECONDS = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_workers(mode, extra, seconds):
+    """MP_PROCESSES processes of ``chip_smoke.py --worker mode`` on one
+    coordinator, each told its index; every one is killed if any runs past
+    ``seconds``, and then this fails. Returns their outputs."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", mode,
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+         str(MP_PROCESSES), "--process-id", str(k), *extra], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in range(MP_PROCESSES)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=seconds)[0])
+            except subprocess.TimeoutExpired:
+                check(False, f"{mode} workers ran past {seconds} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for k, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{mode} worker {k} exited {p.returncode}:"
+              f"\n{out[-6000:]}")
+    return outs
+
+
+def worker_step(args) -> int:
+    """One process of phase_multiprocess: the default config on this
+    process's two ranks of a 1 x 4 mesh over the processes, the halo kernel
+    and the fused detector, MP_STEPS steps after a first one; process 0
+    writes its products and every process's launches and pairs by route."""
+    import numpy as np
+    import torch
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.ops.detect import detect
+    from blah2_tpu_torch.ops.halo import halo_permute
+    from blah2_tpu_torch.parallel import distributed
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh, rank_devices
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    check(distributed.maybe_initialize(args.coordinator, args.num_processes,
+                                       args.process_id), "initialised")
+    cfg = load_config(os.path.join(ROOT, "config", "config.yml"))
+    quads, _ = default_scene(cfg)
+    mesh = make_radar_mesh(1, 4, devices=rank_devices(
+        4 // distributed.process_count()))
+    sp = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas",
+                            use_fused_detect=True)
+    planes = sp.shard_inputs(quads[:, 0] + 1j * quads[:, 1],
+                             quads[:, 2] + 1j * quads[:, 3])
+    sp(*planes)  # the plans and the kernels' first use
+    torch.cuda.synchronize()
+    # The main path: counts at 0 just before, read just after.
+    halo_permute.launches = detect.launches = 0
+    halo_permute.pairs = dict.fromkeys(halo_permute.pairs, 0)
+    ms = []
+    for _ in range(MP_STEPS):
+        t0 = time.perf_counter()
+        out = sp(*planes)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counts = {"halo": halo_permute.launches, "detect": detect.launches,
+              "pairs": dict(halo_permute.pairs), "ms": ms,
+              "backend": distributed.job().backend}
+    halo_permute.check()
+    every = distributed.all_gather_object(counts)
+    if distributed.process_index() == 0:
+        det = out.detections
+        np.savez(os.path.join(args.out, "products.npz"),
+                 db=out.db_map.cpu().numpy(),
+                 noise=out.noise_power.cpu().numpy(),
+                 **{f"det_{k}": getattr(det, k).cpu().numpy()
+                    for k in det._fields})
+        with open(os.path.join(args.out, "counts.json"), "w") as f:
+            json.dump(every, f)
+    distributed.shutdown()
+    return 0
+
+
+def worker_cli(args) -> int:
+    """One process of phase_runtime_multiprocess: the CLI's entry point,
+    with its launches and pairs by route written beside its products."""
+    from blah2_tpu_torch.ops.halo import halo_permute
+    from blah2_tpu_torch.runtime import cli
+
+    cfg = os.path.join(args.out, f"config_{args.process_id}.yml")
+    # The main path: counts at 0 just before, read just after.
+    halo_permute.launches = 0
+    halo_permute.pairs = dict.fromkeys(halo_permute.pairs, 0)
+    rc = cli.main(["--config", cfg, "--coordinator", args.coordinator,
+                   "--num-processes", str(args.num_processes),
+                   "--process-id", str(args.process_id), "--mesh", "1x4",
+                   "--halo-backend", "pallas", "--cpis",
+                   str(MP_RUNTIME_CPIS), "--no-api", "--quiet"])
+    with open(os.path.join(args.out, f"counts_{args.process_id}.json"),
+              "w") as f:
+        json.dump({"halo": halo_permute.launches,
+                   "pairs": dict(halo_permute.pairs)}, f)
+    return rc
+
+
+def phase_multiprocess(dev, root, card):
+    """The sharded step over two processes that share the card (gloo),
+    two ranks each of a 1 x 4 mesh, at the default config with the halo
+    kernel and the fused detector: both kernels launch in the workers, the
+    halo pairs by route are as MP_PAIRS_PER_SHIFT says, and process 0's
+    products are the bits of this process's own 1 x 4 step on the same
+    scene (the same device type and the same sums in the same order),
+    both targets found."""
+    import numpy as np
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_workers("step", ["--out", tmp], MP_SECONDS)
+        got = dict(np.load(os.path.join(tmp, "products.npz")))
+        with open(os.path.join(tmp, "counts.json")) as f:
+            every = json.load(f)
+    wall = time.perf_counter() - t0
+    cfg = load_config(os.path.join(root, "config", "config.yml"))
+    quads, targets = default_scene(cfg)
+    sp = ShardedCpiPipeline(cfg, one_card_mesh(dev, (1, 4)),
+                            halo_backend="pallas", use_fused_detect=True)
+    ref = sp(*sp.shard_inputs(quads[:, 0] + 1j * quads[:, 1],
+                              quads[:, 2] + 1j * quads[:, 3]))
+    want_db = ref.db_map.cpu().numpy()
+    check(got["db"].shape == want_db.shape, f"map {got['db'].shape}")
+    d_map = float(np.abs(got["db"] - want_db).max())
+    check(np.array_equal(got["db"], want_db)
+          and np.array_equal(got["noise"], ref.noise_power.cpu().numpy()),
+          f"two processes' map differs from one process's by {d_map} dB")
+    det = ref.detections
+    for k in det._fields:
+        check(np.array_equal(got[f"det_{k}"], getattr(det, k).cpu().numpy()),
+              f"two processes' detections differ on {k}")
+    ok, dets = found(cpi_of(ref, 0), targets,
+                     sp.ambiguity.doppler_resolution)
+    check(all(ok), f"a target missed: {dets}")
+    shifts = 4 * MP_STEPS
+    check([c["backend"] for c in every] == ["gloo"] * MP_PROCESSES,
+          f"backends {[c['backend'] for c in every]}")
+    check([c["halo"] for c in every] == [shifts] * MP_PROCESSES,
+          f"halo launches {[c['halo'] for c in every]}, want {shifts} "
+          f"in each process")
+    check([c["detect"] for c in every] == [MP_STEPS, 0],
+          f"detect launches {[c['detect'] for c in every]}, want "
+          f"[{MP_STEPS}, 0]")
+    pairs = {r: sum(c["pairs"][r] for c in every) for r in
+             MP_PAIRS_PER_SHIFT}
+    check(pairs == {r: n * shifts for r, n in MP_PAIRS_PER_SHIFT.items()},
+          f"pairs by route {pairs} in {shifts} shifts")
+    line = {"processes": MP_PROCESSES, "mesh": "1x4", "steps": MP_STEPS,
+            "halo_launches": [c["halo"] for c in every],
+            "detect_launches": [c["detect"] for c in every],
+            "pairs": pairs, "map_max_abs_diff_db": d_map,
+            "step_ms": [c["ms"] for c in every], "wall_s": wall,
+            "card": card}
+    print("multiprocess " + json.dumps(line))
+    return line
+
+
+def phase_runtime_multiprocess(root, card, replay, mesh_maps):
+    """The CLI as two processes on the card (``--coordinator ...
+    --num-processes 2 --process-id k --mesh 1x4 --halo-backend pallas``) on
+    phase_runtime_mesh's replay, each saving its products: MP_RUNTIME_CPIS
+    product sets from process 0 in order, its maps against the one-process
+    mesh runtime's of the same windows (the same bits, so the same JSON),
+    the halo launches and pairs by route, and the cpi = latency medians."""
+    import yaml
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(root, "config", "config.yml")) as f:
+            doc = yaml.safe_load(f)
+        doc["capture"]["replay"] = {"state": True, "loop": True,
+                                    "file": replay}
+        for k in range(MP_PROCESSES):
+            doc["save"] = {"iq": False, "map": True, "detection": False,
+                           "timing": True,
+                           "path": os.path.join(tmp, f"save_{k}")}
+            with open(os.path.join(tmp, f"config_{k}.yml"), "w") as f:
+                yaml.safe_dump(doc, f)
+        outs = run_workers("cli", ["--out", tmp], MP_SECONDS)
+        every = []
+        for k in range(MP_PROCESSES):
+            with open(os.path.join(tmp, f"counts_{k}.json")) as f:
+                every.append(json.load(f))
+        saved = {}
+        for name in os.listdir(os.path.join(tmp, "save_0")):
+            with open(os.path.join(tmp, "save_0", name)) as f:
+                saved[os.path.splitext(name)[1]] = json.load(f)
+    wall = time.perf_counter() - t0
+    n = MP_RUNTIME_CPIS
+    check(all("distributed: process" in o for o in outs),
+          "a worker printed no distributed line")
+    maps, docs = saved.get(".map", []), saved.get(".timing", [])
+    check(len(maps) == n == len(docs), f"{len(maps)} maps and {len(docs)} "
+          f"timing docs for {n} CPIs")
+    stamps = [m["timestamp"] for m in maps]
+    check(stamps == sorted(stamps), "products out of order")
+    worst = 0.0
+    for j, m in enumerate(maps):
+        want = mesh_maps[j]
+        check(m["noisePower"] == want["noisePower"],
+              f"CPI {j}: noise {m['noisePower']} against "
+              f"{want['noisePower']}")
+        for a, b in zip(m["data"], want["data"]):
+            worst = max(worst, max(abs(u - v) for u, v in zip(a, b)))
+    check(worst == 0.0, f"process 0's maps differ from the one-process mesh "
+          f"runtime's by {worst} dB")
+    shifts = 4 * n
+    check([c["halo"] for c in every] == [shifts] * MP_PROCESSES,
+          f"halo launches {[c['halo'] for c in every]}, want {shifts} "
+          f"in each process")
+    pairs = {r: sum(c["pairs"][r] for c in every) for r in
+             MP_PAIRS_PER_SHIFT}
+    check(pairs == {r: k * shifts for r, k in MP_PAIRS_PER_SHIFT.items()},
+          f"pairs by route {pairs} in {shifts} shifts")
+    line = {"cpis": n, "wall_s": wall,
+            "cpi_ms_median": statistics.median(d["cpi"] for d in docs),
+            "latency_ms_median": statistics.median(d["latency"]
+                                                   for d in docs),
+            "halo_launches": [c["halo"] for c in every], "pairs": pairs,
+            "card": card}
+    print("runtime_multiprocess " + json.dumps(line))
+    return line
+
+
+def worker_main(argv) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--worker", choices=("step", "cli"), required=True)
+    ap.add_argument("--coordinator", required=True)
+    ap.add_argument("--num-processes", type=int, required=True)
+    ap.add_argument("--process-id", type=int, required=True)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    return {"step": worker_step, "cli": worker_cli}[args.worker](args)
 
 
 def main() -> int:
+    # The smoke drives one card, the first this process may see; it hides
+    # the others (before CUDA starts, and from its workers too), so the
+    # device count it reports is the card it ran on.
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = \
+        "0" if visible is None else visible.split(",")[0]
     import torch
 
     if not torch.cuda.is_available():
@@ -1740,7 +2006,11 @@ def main() -> int:
     sh = phase_sharded_timing(dev, ROOT, card)
     alt = phase_alternatives(dev, ROOT, card)
     sh_alt = phase_sharded_alternatives(dev, ROOT, card)
-    mesh_launches, mesh_rt = phase_runtime_mesh(dev, ROOT, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_launches, mesh_rt, replay, mesh_maps = phase_runtime_mesh(
+            dev, ROOT, card, tmp)
+        mp = phase_multiprocess(dev, ROOT, card)
+        mp_rt = phase_runtime_multiprocess(ROOT, card, replay, mesh_maps)
 
     kern_ms = min(timing["detect_ms"])
     plain_ms = min(timing["detect_plain_ms"])
@@ -1771,6 +2041,9 @@ def main() -> int:
     print(f"runtime mesh 1 x 4 on {card}: {mesh_rt['cpi_ms_median']} ms "
           f"cpi, {mesh_rt['latency_ms_median']} ms latency (medians of "
           f"{mesh_rt['cpis']})")
+    print(f"runtime mesh 1 x 4 over {MP_PROCESSES} processes on {card}: "
+          f"{mp_rt['cpi_ms_median']} ms cpi, {mp_rt['latency_ms_median']} "
+          f"ms latency (medians of {mp_rt['cpis']})")
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "detect",
@@ -1783,7 +2056,8 @@ def main() -> int:
             **{f"{k}_call_quad12": v["detect_launches_per_cpi"]
                for k, v in alt.items()},
             **{f"sharded_{k}_step": v["detect_launches_per_step"]
-               for k, v in sh_alt.items()}},
+               for k, v in sh_alt.items()},
+            "multiprocess_step": mp["detect_launches"]},
         "max_abs_err": err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
@@ -1803,7 +2077,11 @@ def main() -> int:
             "sharded_step": halo_launches,
             **{f"sharded_{k}_step": v["halo_launches_per_step"]
                for k, v in sh_alt.items()},
-            "runtime_mesh": mesh_launches},
+            "runtime_mesh": mesh_launches,
+            "multiprocess_step": mp["halo_launches"],
+            "runtime_multiprocess": mp_rt["halo_launches"]},
+        "pairs_by_route": {"multiprocess_step": mp["pairs"],
+                           "runtime_multiprocess": mp_rt["pairs"]},
         "max_abs_err": halo_err,
         "ms": min(sh["shift_ms"]),
         "plain_ms": min(sh["shift_plain_ms"]),
@@ -1822,4 +2100,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(worker_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

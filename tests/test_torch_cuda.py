@@ -637,3 +637,77 @@ def test_cli_mesh_on_one_card(card):
         cwd=repo, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.count("(batch of 1") == 4
+
+
+def _two_card_workers(case, tmp_path):
+    """tests/test_torch_multiprocess.py's ``case`` on two processes, one
+    card each (NCCL); every process's report, in process order."""
+    import json
+    import os
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from test_torch_multiprocess import run_workers
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "test_torch_multiprocess.py")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0,1")
+    run_workers(script, ["--case", case, "--out", str(tmp_path)], 2, 300,
+                env=env)
+    with open(tmp_path / f"{case}.json") as f:
+        return json.load(f)
+
+
+@pytest.mark.cuda
+def test_halo_kernel_across_processes_on_two_cards(card, tmp_path):
+    """Two processes on a card each: the halo kernel writes the peer
+    process's receive buffers through CUDA IPC and equals
+    halo_permute_plain (whose crossing pairs go by NCCL), on 1 x 2 and
+    1 x 4 meshes, circular and masked, f32/c64/c128 strided slices, 50
+    back-to-back calls; one launch a call in each process; per call the
+    pairs by route."""
+    every = _two_card_workers("halo", tmp_path)
+    assert [e["backend"] for e in every] == ["nccl", "nccl"]
+    assert [e["cards"] for e in every] == [[0], [1]]
+    assert all(e["differing"] == 0 and e["cases"] > 0 for e in every)
+    # Pairs whose receiver is in each process, summed over both.
+    want = {(2, False): {"kernel": 0, "ipc": 2}, (2, True): {"kernel": 0,
+                                                             "ipc": 1},
+            (4, False): {"kernel": 2, "ipc": 2}, (4, True): {"kernel": 2,
+                                                             "ipc": 1}}
+    for i, case in enumerate(every[0]["routes"]):
+        calls = 50 if case["dtype"] == "torch.complex64" else 1
+        width, mask = case["mesh"][1], case["mask"]
+        total = {k: sum(e["routes"][i]["pairs"][k] for e in every)
+                 for k in ("kernel", "ipc", "group")}
+        assert total == {**{k: v * calls for k, v in
+                            want[width, mask].items()}, "group": 0}, case
+        assert [e["routes"][i]["launches"] for e in every] == \
+            [calls, calls], case
+
+
+@pytest.mark.cuda
+def test_sharded_step_across_processes_on_two_cards(card, tmp_path):
+    """The sharded step on a 1 x 2 mesh over two processes (NCCL; the halo
+    kernel through IPC, or NCCL's send/recv) gives the one-process step's
+    products on the same two cards."""
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    every = _two_card_workers("step", tmp_path)
+    from test_torch_multiprocess import BACKENDS, card_scene, products
+
+    assert [e["backend"] for e in every] == ["nccl", "nccl"]
+    assert [e["launches"] for e in every] == \
+        [{"ppermute": 0, "pallas": 4}] * 2
+    got = np.load(tmp_path / "step.npz")
+    cfg, x, y = card_scene()
+    mesh = make_radar_mesh(1, 2, devices=[torch.device("cuda", 0),
+                                          torch.device("cuda", 1)])
+    for backend in BACKENDS:
+        sp = ShardedCpiPipeline(cfg, mesh, halo_backend=backend,
+                                use_fused_detect=True)
+        want = products(sp(*sp.shard_inputs(x, y)))
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[f"{backend}/{k}"], v,
+                                          err_msg=f"{backend} {k}")

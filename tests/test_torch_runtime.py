@@ -537,28 +537,88 @@ def test_runtime_needs_a_card_unless_told():
 
 
 def test_mesh_mode_refuses():
-    """Mesh mode runs in this one process; what still refuses is a run
-    over several processes, whose message names the ROADMAP item."""
-    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
-    from blah2_tpu_torch.runtime.radar import MESH_NOT_PORTED
+    """Mesh mode runs, in one process or over several (nothing is refused
+    for being unported any more); what it refuses is a device list that
+    does not fill the mesh."""
+    from blah2_tpu_torch.parallel.mesh import RadarMesh, make_radar_mesh
+    from blah2_tpu_torch.runtime import radar
 
     rt = RadarRuntime(load_config(CONFIG), device="cpu",
                       mesh=make_radar_mesh(1, 2, devices=["cpu"] * 2))
     assert rt.sharded is not None and rt.cpi_batch == 1
-    assert "queue 1 item 4" in MESH_NOT_PORTED
-    assert "--mesh" not in MESH_NOT_PORTED
+    assert not hasattr(radar, "MESH_NOT_PORTED")
+    with pytest.raises(ValueError, match="1 processes"):
+        RadarMesh(1, 2, ["cpu"] * 3)
 
 
-@pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234"],
-                                  ["--num-processes", "2"],
-                                  ["--process-id", "0"]],
-                         ids=lambda f: f[0])
-def test_cli_refuses_mesh_flags(flag, capsys):
-    """The multi-process flags still exit 2, naming the ROADMAP item."""
-    rc = cli.main(["--config", CONFIG, "--device", "cpu", "--no-api",
-                   "--cpis", "1"] + flag)
-    assert rc == 2
-    assert "queue 1 item 4" in capsys.readouterr().err
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _cli_job(tmp_path, args, envs, seconds=240):
+    """Two CLI processes (``args[k]``, ``envs[k]`` for process k) on the
+    synthetic config with the API on a free port; both killed if either
+    runs past ``seconds``. Returns [(exit code, stdout, stderr)]."""
+    import yaml
+
+    with open(CONFIG) as f:
+        doc = yaml.safe_load(f)
+    doc["network"]["ip"] = "127.0.0.1"
+    doc["network"]["ports"]["api"] = _free_port()
+    cfg = tmp_path / "config.yml"
+    cfg.write_text(yaml.safe_dump(doc))
+    procs = []
+    for k in range(2):
+        env = {n: v for n, v in os.environ.items() if n != "PYTHONPATH"}
+        env.update(PYTHONPATH=REPO, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+                   **envs[k])
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "blah2_tpu_torch.runtime.cli", "--config",
+             str(cfg), "--device", "cpu", "--cpis", "1", *args[k]], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=seconds))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return [(p.returncode, out, err) for p, (out, err) in zip(procs, outs)]
+
+
+@pytest.mark.parametrize("source", ["flags", "environment", "no-mesh"])
+def test_cli_runs_across_two_processes(source, tmp_path):
+    """The multi-process flags run, as in the JAX CLI: two gloo processes
+    on the CPU, one CPI batch each, the mesh over both (2 x 4 from flags,
+    1 x 8 from BLAH2_* variables; without --mesh each process runs the
+    single-device pipeline). Each prints its distributed line; only
+    process 0 serves the API."""
+    coord = f"127.0.0.1:{_free_port()}"
+    flags = [["--coordinator", coord, "--num-processes", "2",
+              "--process-id", str(k)] for k in range(2)]
+    env = [{"BLAH2_COORDINATOR": coord, "BLAH2_NUM_PROCESSES": "2",
+            "BLAH2_PROCESS_ID": str(k)} for k in range(2)]
+    args, envs, batch = {
+        "flags": ([f + ["--mesh", "2x4"] for f in flags], [{}, {}],
+                  "(batch of 2"),
+        "environment": ([["--mesh", "1x8", "--halo-backend", "pallas"]] * 2,
+                        env, "(batch of 1"),
+        "no-mesh": (flags, [{}, {}], "CPI time (ms)"),
+    }[source]
+    runs = _cli_job(tmp_path, args, envs)
+    for k, (rc, out, err) in enumerate(runs):
+        assert rc == 0, f"process {k}:\n{out}\n{err}"
+        assert f"distributed: process {k}/2" in out
+        assert "backend gloo" in out
+        assert out.count(batch) == 1, out
+        assert ("API on http://" in out) == (k == 0)
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "2x4"],

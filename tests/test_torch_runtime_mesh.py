@@ -146,6 +146,28 @@ def test_mesh_runtime_loop_batches_in_order(backend):
             assert ALL_KEYS <= set(doc) and doc["latency"] == doc["cpi"]
 
 
+@pytest.mark.parametrize("word", [0, 2])
+def test_mesh_runtime_checks_the_halo_error_words(word, monkeypatch):
+    """The batch fetch brings the halo kernel's error words of the
+    runtime's mesh (faked here: on the CPU no plan takes flags): a set word
+    raises before any product of the batch is emitted, a clean one
+    emits."""
+    from blah2_tpu_torch.ops.halo import halo_permute
+
+    rt = _runtime(halo_backend="pallas")
+    emissions = _spy(rt)
+    monkeypatch.setattr(halo_permute, "error_words", lambda mesh=None: [
+        torch.tensor([word if mesh is rt.sharded.mesh else 0])])
+    assert rt.process_cpi_batch(_windows(2), [1, 2]) is None
+    if word:
+        with pytest.raises(RuntimeError, match="a wait timed out"):
+            rt._flush_pending_batch()
+        assert not _maps(emissions)
+    else:
+        assert len(rt._flush_pending_batch()) == 2
+        assert len(_maps(emissions)) == 2
+
+
 def test_mesh_runtime_windows_match_jax_loop():
     """Both runtimes' loops over the same four windows in their rings emit
     maps that agree CPI by CPI."""

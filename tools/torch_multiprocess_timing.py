@@ -1,0 +1,313 @@
+#!/usr/bin/env python3
+"""The sharded step across cards and processes, on NVIDIA cards.
+
+    python3 tools/torch_multiprocess_timing.py [--steps 20] [--warmup 3]
+
+Times the default config's 1 x 4 sharded step (complex64, the halo kernel,
+the fused detector; planes on the cards to detections) in three layouts:
+
+  (a) one process, the four ranks on one card;
+  (b) one process, one rank on each of four cards (peer access, the
+      kernel's flag protocol across cards);
+  (c) four processes, one card each (``torch.distributed`` with NCCL; the
+      halo kernel between processes through CUDA IPC).
+
+Per layout: ms per step by the host clock from the call until every card
+of the process is synchronised, median, min and max over ``--steps`` steps
+after ``--warmup`` (in (c), every process's); in (a) also by CUDA events,
+as ``chip_smoke.py`` times it; from ``torch.profiler`` over five steps the
+device busy ms per step of each card, the idle share against the median
+step, the kernels per step and the halo kernel's device time per launch;
+and the halo kernel alone by CUDA events on every card (``halo_events``).
+In (c) each process is profiled in a window of its own while the others
+run the same steps unprofiled: a profiled process's host falls behind, and
+a peer's flagged halo launch or NCCL kernel would count its wait for the
+late process as device time. (b) and (c) need four cards and are left
+out, with a note, where there are fewer. Prints one JSON line with the
+card's name and power limit. Needs a card and exits 2 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+N_CARDS = 4
+PROFILED_STEPS = 5
+# The halo kernel alone: calls timed by events, and the clock cycles each
+# card sleeps before them, so that every process has enqueued its calls
+# before any card starts them (host skew after a barrier is well below it).
+HALO_CALLS = 50
+HALO_SLEEP_CYCLES = 4_000_000
+
+
+def spread(times):
+    return {"median": statistics.median(times), "min": min(times),
+            "max": max(times)}
+
+
+def pipeline(mesh):
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    import chip_smoke
+
+    cfg = load_config(os.path.join(ROOT, "config", "config.yml"))
+    quads, _ = chip_smoke.default_scene(cfg)
+    sp = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas",
+                            use_fused_detect=True)
+    planes = sp.shard_inputs(quads[:, 0] + 1j * quads[:, 1],
+                             quads[:, 2] + 1j * quads[:, 3])
+    return sp, planes
+
+
+def host_times(step, cards, n, warmup):
+    """ms of ``step()`` until every card of ``cards`` is synchronised."""
+    import torch
+
+    def sync():
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    for _ in range(warmup):
+        step()
+    sync()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def profile(step, cards, ready=None):
+    """Per card: device busy ms per step, kernels per step; the halo
+    kernel's device us per launch, from the profiler's trace of device
+    activity. ``ready()``, where given, runs once the profiler is up and
+    before the steps (a barrier: the profiler takes long to start, and
+    peers must not wait on the card that long)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    import chip_smoke
+
+    for c in cards:
+        torch.cuda.synchronize(c)
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if ready is not None:
+            ready()
+        for _ in range(PROFILED_STEPS):
+            step()
+        for c in cards:
+            torch.cuda.synchronize(c)
+    trace = chip_smoke.trace_events(prof)
+    busy: dict = {}
+    kernels: dict = {}
+    halo = []
+    for ev in trace["kernel"] + trace["gpu_memcpy"] + trace["gpu_memset"]:
+        dev = ev.get("args", {}).get("device", 0)
+        busy[dev] = busy.get(dev, 0.0) + ev["dur"]
+        kernels[dev] = kernels.get(dev, 0) + 1
+        if "halo_permute" in ev["name"]:
+            halo.append(ev["dur"])
+    return {"busy_ms_per_step": {str(d): t / PROFILED_STEPS / 1e3
+                                 for d, t in sorted(busy.items())},
+            "kernels_per_step": {str(d): k / PROFILED_STEPS
+                                 for d, k in sorted(kernels.items())},
+            "halo_device_us": spread(halo) if halo else None,
+            "halo_launches_per_step": len(halo) / PROFILED_STEPS}
+
+
+def halo_events(mesh, cards):
+    """Device us of the halo kernel's masked shift of a (1, 409) complex64
+    payload (the step's shift) per card, by CUDA events around one call:
+    each card sleeps, then makes one call that lines the cards up (its
+    flags wait for every peer) and the timed call right behind it. In a
+    job every process enters each round after a barrier."""
+    import torch
+
+    from blah2_tpu_torch.ops.halo import halo_permute
+    from blah2_tpu_torch.parallel import distributed
+
+    gen = torch.Generator().manual_seed(7)
+    bufs = [None] * mesh.size
+    for r in mesh.local_ranks:
+        bufs[r] = torch.randn(1, 409, dtype=torch.complex64,
+                              generator=gen).to(mesh.devices[r])
+    times = {c: [] for c in cards}
+    for _ in range(HALO_CALLS):
+        if distributed.is_multiprocess():
+            torch.distributed.barrier()
+        for c in cards:
+            with torch.cuda.device(c):
+                torch.cuda._sleep(HALO_SLEEP_CYCLES)
+        halo_permute(bufs, mesh, collective_id=7, mask_edge=True)
+        marks = {}
+        for c in cards:
+            with torch.cuda.device(c):
+                marks[c] = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+                marks[c][0].record()
+        halo_permute(bufs, mesh, collective_id=7, mask_edge=True)
+        for c in cards:
+            with torch.cuda.device(c):
+                marks[c][1].record()
+        for c in cards:
+            torch.cuda.synchronize(c)
+            times[c].append(1e3 * marks[c][0].elapsed_time(marks[c][1]))
+    return {str(c): spread(t) for c, t in times.items()}
+
+
+def layout_one_process(devices, args):
+    import torch
+
+    import chip_smoke
+    from blah2_tpu_torch.ops.halo import halo_permute
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+
+    sp, planes = pipeline(make_radar_mesh(1, 4, devices=devices))
+    cards = sorted({d.index for d in devices})
+    out = {"ms": spread(host_times(lambda: sp(*planes), cards, args.steps,
+                                   args.warmup))}
+    if len(cards) == 1:
+        out["events_ms"] = chip_smoke.event_times(lambda: sp(*planes),
+                                                  args.steps, args.warmup)
+    out["profile"] = profile(lambda: sp(*planes), cards)
+    out["halo_events"] = halo_events(sp.mesh, cards)
+    halo_permute.check()
+    busiest = max(out["profile"]["busy_ms_per_step"].values(),
+                  default=float("nan"))
+    out["idle_share"] = 1.0 - busiest / out["ms"]["median"]
+    return out
+
+
+def worker(args) -> int:
+    """One process of layout (c)."""
+    import torch
+
+    from blah2_tpu_torch.ops.halo import halo_permute
+    from blah2_tpu_torch.parallel import distributed
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+
+    distributed.maybe_initialize(args.coordinator, args.num_processes,
+                                 args.process_id)
+    job = distributed.job()
+    mesh = make_radar_mesh(1, 4)
+    sp, planes = pipeline(mesh)
+    cards = list(job.cards)
+    sp(*planes)
+    for c in cards:
+        torch.cuda.synchronize(c)
+    halo_permute.pairs = dict.fromkeys(halo_permute.pairs, 0)
+    times = host_times(lambda: sp(*planes), cards, args.steps, args.warmup)
+    pairs = dict(halo_permute.pairs)
+    # Each process profiled in a window of its own; the others run the
+    # same steps, since every process makes the same calls.
+    for k in range(distributed.process_count()):
+        if k == distributed.process_index():
+            prof = profile(lambda: sp(*planes), cards,
+                           ready=torch.distributed.barrier)
+        else:
+            torch.distributed.barrier()
+            host_times(lambda: sp(*planes), cards, PROFILED_STEPS, 0)
+    halo = halo_events(mesh, cards)
+    halo_permute.check()
+    busiest = max(prof["busy_ms_per_step"].values(), default=float("nan"))
+    mine = {"process": distributed.process_index(), "cards": cards,
+            "backend": job.backend, "ms": spread(times), "profile": prof,
+            "halo_events": halo,
+            "idle_share": 1.0 - busiest / statistics.median(times),
+            "pairs_per_step": {k: v / (args.steps + args.warmup)
+                               for k, v in pairs.items()}}
+    every = distributed.all_gather_object(mine)
+    if distributed.process_index() == 0:
+        with open(args.out, "w") as f:
+            json.dump(every, f)
+    distributed.shutdown()
+    return 0
+
+
+def layout_processes(args):
+    import chip_smoke
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "every.json")
+        port = chip_smoke.free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+             str(N_CARDS), "--process-id", str(k), "--out", out,
+             "--steps", str(args.steps), "--warmup", str(args.warmup)],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for k in range(N_CARDS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for k, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"process {k} exited {p.returncode}:\n"
+                                   f"{log[-6000:]}")
+        with open(out) as f:
+            every = json.load(f)
+    return {"processes": every,
+            "ms_process_0": every[0]["ms"],
+            "ms_slowest_median": max(e["ms"]["median"] for e in every)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--worker", action="store_true")
+    ap.add_argument("--coordinator")
+    ap.add_argument("--num-processes", type=int)
+    ap.add_argument("--process-id", type=int)
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    if args.worker:
+        return worker(args)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_multiprocess_timing: needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    import chip_smoke
+
+    n = torch.cuda.device_count()
+    cuda = [torch.device("cuda", i) for i in range(n)]
+    result = {"cards_visible": n, "steps": args.steps,
+              "warmup": args.warmup,
+              "a_one_process_one_card": layout_one_process([cuda[0]] * 4,
+                                                           args)}
+    if n >= N_CARDS:
+        result["b_one_process_four_cards"] = layout_one_process(
+            cuda[:N_CARDS], args)
+        result["c_four_processes_four_cards"] = layout_processes(args)
+    else:
+        result["note"] = (f"{n} card(s) visible: layouts (b) and (c) need "
+                          f"{N_CARDS}")
+    result["card"] = chip_smoke.card_line()
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
