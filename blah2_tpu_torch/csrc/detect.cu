@@ -62,7 +62,31 @@
 // halos add reads from L2 (34 x 74 loaded for 24 x 48 kept at the default
 // config, 2.2 times), not device memory traffic. At this size the kernel
 // is bound by neither: a launch, five dependent phases over one wave of
-// blocks, and the last block's reduction set its time.
+// blocks, and the last block's reduction set its time. The row-block mode
+// reads each block's halo rows too (2 x win_rows of every block's R + 2 x
+// win_rows rows) and is bound the same way.
+//
+// Row-block mode (detect_launch_blocks), for the row-sharded pipeline, in
+// which each pulse rank holds R rows of the map: a stack of blocks, block b
+// its R kept rows at map rows g0_b .. g0_b + R - 1 with the win_rows rows
+// above and below them (the centroid window's reach, which the caller
+// brings from the neighbouring ranks), each part read where it lies through
+// a table of pointers, one launch for every block of a card. Rows outside
+// [0, nr), halo rows past the map's edges and the last rank's phantom rows
+// alike, are outside the map: power 0, cell_ok 0, as map mode's edges.
+// CFAR runs along delay only, so a block needs no more rows than the
+// window's. Out: db and keep of the kept rows (phantom rows: -inf and 0),
+// and per block the dB sum over its kept rows inside the map and
+// max(0, their max dB), by the same ticket reduction (inv_cells 1): the
+// caller reduces those over the ranks. Same arithmetic per cell as map
+// mode, so db and keep are the bits map mode gives on the whole map. The
+// tile is kBlockTileRows x kTileCols. At 1 x 4 (4 blocks of 76 rows) 24-row
+// tiles make 4 x 4 x 9 = 144 blocks, two waves on 132 SMs, and took 11.8
+// us; 32-row tiles make 108 blocks, one wave, 8.2 us; 40-row tiles 72
+// blocks, 8.6 us (tools/torch_detect_probe.py --block-tiles, NVIDIA H100
+// 80GB HBM3 at 700 W): a block's phases cost about the same up to 4,096
+// region cells (one load a thread), so a taller tile is nearly free until
+// the wave runs short of SMs.
 //
 // Interface: plain C, bound from Python with ctypes. The launcher makes
 // `device` current where it is not, enqueues on the given stream, does not
@@ -78,7 +102,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;
 // The tile, and where a probe build stops (DETECT_CUT = n returns after
 // phase n; 0, the default, after none): tools/torch_detect_probe.py builds
-// copies with -DDETECT_TILE_ROWS/-DDETECT_TILE_COLS or -DDETECT_CUT.
+// copies with -DDETECT_TILE_ROWS/-DDETECT_TILE_COLS, -DDETECT_CUT or the
+// row-block mode's -DDETECT_BLOCK_TILE_ROWS.
 #ifndef DETECT_TILE_ROWS
 #define DETECT_TILE_ROWS 24
 #endif
@@ -88,9 +113,19 @@ constexpr int kUnroll = 4;
 #ifndef DETECT_CUT
 #define DETECT_CUT 0
 #endif
+#ifndef DETECT_BLOCK_TILE_ROWS
+#define DETECT_BLOCK_TILE_ROWS 32
+#endif
 constexpr int kTileRows = DETECT_TILE_ROWS;
 constexpr int kTileCols = DETECT_TILE_COLS;
-constexpr int kStaticSmem = 2 * kWarps * 4 + 16;
+constexpr int kBlockTileRows = DETECT_BLOCK_TILE_ROWS;
+// s_sum, s_max, s_last and s_row_hit of the taller of the two tiles.
+constexpr int kStaticSmem =
+    2 * kWarps * 4 + 4 +
+    4 * (kTileRows > kBlockTileRows ? kTileRows : kBlockTileRows);
+// Row blocks of one launch (the pointer table is a kernel parameter: 28 B
+// a block, 3,584 B of the 4 KB a launch's parameters may hold).
+constexpr int kMaxBlocks = 128;
 
 // A probe cut: every thread returns after phase n, after a store (never
 // taken) of a value the phases made, so that the compiler keeps their work.
@@ -135,12 +170,40 @@ __device__ __forceinline__ void block_sum_max(float& a, float& m,
   }
 }
 
-long long smem_floats(int n_guard, int n_train, int win_rows, int win_cols) {
-  const long long rh = kTileRows + 2LL * win_rows;
+long long smem_floats(int tile_rows, int n_guard, int n_train, int win_rows,
+                      int win_cols) {
+  const long long rh = tile_rows + 2LL * win_rows;
   const long long pw = kTileCols + 2LL * (win_cols + n_guard + n_train);
   const long long mw = kTileCols + 2LL * win_cols;
-  return 2 * rh * pw + pw + rh + kTileRows * mw;
+  return 2 * rh * pw + pw + rh + tile_rows * mw;
 }
+
+// Where the rows of one map (map mode) or one row block lie: local row i of
+// [lo, kept + halo) is main's row i for 0 <= i < kept, above's row
+// i + halo for i < 0, below's row i - kept for i >= kept; map row g0 + i.
+// Map mode: main is the map, kept = nr, halo = 0, g0 = 0.
+template <typename In>
+struct Src {
+  const In* above;
+  const In* main;
+  const In* below;
+  int kept, halo, g0;
+
+  __device__ __forceinline__ const In* row(int i, int nc) const {
+    if (i < 0) return above + static_cast<long long>(i + halo) * nc;
+    if (i < kept) return main + static_cast<long long>(i) * nc;
+    return below + static_cast<long long>(i - kept) * nc;
+  }
+};
+
+// The row blocks of one launch of the row-block mode.
+template <typename In>
+struct BlockTable {
+  const In* above[kMaxBlocks];
+  const In* main[kMaxBlocks];
+  const In* below[kMaxBlocks];
+  int first_row[kMaxBlocks];
+};
 
 // (row, column) of the flat index start, start + step, ... of a region
 // `width` wide, kept up to date by adds: no division after the first.
@@ -162,23 +225,25 @@ struct Walk {
   }
 };
 
-template <typename In>
-__global__ void __launch_bounds__(kThreads)
-detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
-            const float* __restrict__ cell_ok, float* __restrict__ db,
-            float* __restrict__ keep, unsigned int* __restrict__ counters,
-            float* __restrict__ part_sum, float* __restrict__ part_max,
-            float* __restrict__ noise, float* __restrict__ rawmax, int nr,
-            int nc, int n_guard, int n_train, int win_rows, int win_cols,
-            float inv_cells) {
+// The detect function on one tile (grid x, y) of one map or row block
+// (grid z), whose rows `src` gives; db and keep point at that map's or
+// block's output rows.
+template <typename In, int Rows>
+__device__ __forceinline__ void detect_body(
+    const Src<In>& src, const float* __restrict__ scale,
+    const float* __restrict__ cell_ok, float* __restrict__ db,
+    float* __restrict__ keep, unsigned int* __restrict__ counters,
+    float* __restrict__ part_sum, float* __restrict__ part_max,
+    float* __restrict__ noise, float* __restrict__ rawmax, int nr, int nc,
+    int n_guard, int n_train, int win_rows, int win_cols, float inv_cells) {
   extern __shared__ float smem[];
   __shared__ float s_sum[kWarps];
   __shared__ float s_max[kWarps];
   __shared__ int s_last;
-  __shared__ int s_row_hit[kTileRows];
+  __shared__ int s_row_hit[Rows];
 
   const int hp = n_guard + n_train;
-  const int rh = kTileRows + 2 * win_rows;
+  const int rh = Rows + 2 * win_rows;
   const int pw = kTileCols + 2 * (win_cols + hp);
   const int mw = kTileCols + 2 * win_cols;
   const int n_p = rh * pw;
@@ -186,27 +251,26 @@ detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
   float* s_m = s_p + n_p;         // rh x pw cell_ok, then hit power
   float* s_scale = s_m + n_p;     // pw
   float* s_col0 = s_scale + pw;   // rh: the power of map column 0
-  float* s_rm = s_col0 + rh;      // kTileRows x mw
+  float* s_rm = s_col0 + rh;      // Rows x mw
 
-  const int r0 = blockIdx.y * kTileRows;
+  const int r0 = blockIdx.y * Rows;
   const int c0 = blockIdx.x * kTileCols;
-  const int map = blockIdx.z;
-  const long long base = static_cast<long long>(map) * nr * nc;
-  in += base;
-  db += base;
-  keep += base;
-  // Map row and column of region cell (0, 0).
-  const int gi0 = r0 - win_rows;
+  const int z = blockIdx.z;
+  // Source row and map column of region cell (0, 0); the rows the source
+  // holds are [lo, hi).
+  const int li0 = r0 - win_rows;
   const int gj0 = c0 - win_cols - hp;
+  const int lo = -src.halo;
+  const int hi = src.kept + src.halo;
 
   // 1. Every load of the block first: power and cell_ok over the region
-  //    (0 outside the map), and scale. Each thread issues its loads for
-  //    kUnroll cells before it stores any. Column 0 of the map is stored
-  //    as 0 in s_p and its power kept in s_col0: column 0 is never a
-  //    train cell (the reference's k>0 quirk on the left; no right cell
-  //    reaches it), and cells outside the map are 0, so the train sums
-  //    below need no bounds tests and add the same terms in the same
-  //    order as the reference.
+  //    (0 outside the source's rows and outside the map), and scale. Each
+  //    thread issues its loads for kUnroll cells before it stores any.
+  //    Column 0 of the map is stored as 0 in s_p and its power kept in
+  //    s_col0: column 0 is never a train cell (the reference's k>0 quirk on
+  //    the left; no right cell reaches it), and cells outside the map are
+  //    0, so the train sums below need no bounds tests and add the same
+  //    terms in the same order as the reference.
   {
     Walk w(threadIdx.x, kThreads, pw);
     for (int k0 = threadIdx.x; k0 < n_p; k0 += kThreads * kUnroll) {
@@ -214,16 +278,16 @@ detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
       int at[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        const int gi = gi0 + w.r;
+        const int li = li0 + w.r;
+        const int gi = src.g0 + li;
         const int gj = gj0 + w.c;
         at[u] = gj == 0 ? w.r : -1;
         p[u] = 0.0f;
         ok[u] = 0.0f;
-        if (k0 + u * kThreads < n_p && gi >= 0 && gi < nr && gj >= 0 &&
-            gj < nc) {
-          const long long g = static_cast<long long>(gi) * nc + gj;
-          p[u] = power_of(in, g);
-          ok[u] = cell_ok[g];
+        if (k0 + u * kThreads < n_p && li >= lo && li < hi && gi >= 0 &&
+            gi < nr && gj >= 0 && gj < nc) {
+          p[u] = power_of(src.row(li, nc), gj);
+          ok[u] = cell_ok[static_cast<long long>(gi) * nc + gj];
         }
         w.next();
       }
@@ -243,7 +307,7 @@ detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
       }
       if (k0 == threadIdx.x && threadIdx.x < pw) s_scale[threadIdx.x] = sc;
     }
-    if (threadIdx.x < kTileRows) s_row_hit[threadIdx.x] = 0;
+    if (threadIdx.x < Rows) s_row_hit[threadIdx.x] = 0;
     // Regions wider than the block (centroid windows of hundreds of
     // columns) take the rest of scale here.
     for (int c = kThreads + threadIdx.x; c < pw; c += kThreads) {
@@ -261,11 +325,12 @@ detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
   {
     Walk w(threadIdx.x, kThreads, mw);
     for (int k = threadIdx.x; k < rh * mw; k += kThreads, w.next()) {
-      const int gi = gi0 + w.r;
+      const int li = li0 + w.r;
+      const int gi = src.g0 + li;
       const int gj = c0 - win_cols + w.c;
       const int at = w.r * pw + hp + w.c;
       float m = 0.0f;
-      if (gi >= 0 && gi < nr && gj >= 0 && gj < nc) {
+      if (li >= lo && li < hi && gi >= 0 && gi < nr && gj >= 0 && gj < nc) {
         const float* row = s_p + at;
         const float p = gj == 0 ? s_col0[w.r] : row[0];
         float train = 0.0f;
@@ -279,7 +344,7 @@ detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
         m = hit ? p : 0.0f;
         // A tile row with a hit needs its window max (phases 3 and 4).
         const int i = w.r - win_rows;
-        if (hit && i >= 0 && i < kTileRows && w.c >= win_cols &&
+        if (hit && i >= 0 && i < Rows && w.c >= win_cols &&
             w.c < win_cols + kTileCols) {
           s_row_hit[i] = 1;
         }
@@ -294,7 +359,7 @@ detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
   // 3. Window max along rows, for the tile rows that hold a hit.
   {
     Walk w(threadIdx.x, kThreads, mw);
-    for (int k = threadIdx.x; k < kTileRows * mw; k += kThreads, w.next()) {
+    for (int k = threadIdx.x; k < Rows * mw; k += kThreads, w.next()) {
       if (!s_row_hit[w.r]) continue;
       const float* col = s_m + w.r * pw + hp + w.c;
       float v = 0.0f;
@@ -307,8 +372,8 @@ detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
   DETECT_CUT_AFTER(3, smem[5]);
 
   // 4. Window max along columns, keep and dB into registers, and the
-  //    block's partials.
-  constexpr int kPer = (kTileRows * kTileCols + kThreads - 1) / kThreads;
+  //    block's partials over its cells inside the map.
+  constexpr int kPer = (Rows * kTileCols + kThreads - 1) / kThreads;
   float d_out[kPer], k_out[kPer];
   long long at_out[kPer];
   float d_sum = 0.0f;
@@ -318,10 +383,11 @@ detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
     const int k = threadIdx.x + u * kThreads;
     const int i = k / kTileCols;
     const int j = k - i * kTileCols;
-    const int gi = r0 + i;
+    const int li = r0 + i;
     const int gj = c0 + j;
     at_out[u] = -1;
-    if (k >= kTileRows * kTileCols || gi >= nr || gj >= nc) continue;
+    if (k >= Rows * kTileCols || li >= src.kept || gj >= nc) continue;
+    const int gi = src.g0 + li;
     const int at = (i + win_rows) * pw + j + win_cols + hp;
     const float p = gj == 0 ? s_col0[i + win_rows] : s_p[at];
     // A hit has p > scale*train >= 0, so hit <=> m > 0; only a hit needs
@@ -336,22 +402,24 @@ detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
     const float d = 5.0f * log10f(p);
     d_out[u] = d;
     k_out[u] = kept;
-    at_out[u] = static_cast<long long>(gi) * nc + gj;
-    d_sum += d;
-    d_max = fmaxf(d_max, d);
+    at_out[u] = static_cast<long long>(li) * nc + gj;
+    if (gi >= 0 && gi < nr) {
+      d_sum += d;
+      d_max = fmaxf(d_max, d);
+    }
   }
   block_sum_max(d_sum, d_max, s_sum, s_max);
 
   DETECT_CUT_AFTER(4, d_sum + d_out[0] + k_out[0]);
 
-  // 5. The partials, and a ticket per map: the block that draws the last
-  //    one reduces the map's partials. The ticket is an acq_rel atomic:
-  //    release publishes this block's partials, acquire lets the last
-  //    block read every other block's. The map's cells are stored after
+  // 5. The partials, and a ticket per map or row block: the block that
+  //    draws the last one reduces the partials. The ticket is an acq_rel
+  //    atomic: release publishes this block's partials, acquire lets the
+  //    last block read every other block's. The cells are stored after
   //    the ticket, so that no fence waits for them.
   const int n_tiles = gridDim.x * gridDim.y;
-  part_sum += static_cast<long long>(map) * n_tiles;
-  part_max += static_cast<long long>(map) * n_tiles;
+  part_sum += static_cast<long long>(z) * n_tiles;
+  part_max += static_cast<long long>(z) * n_tiles;
   if (threadIdx.x == 0) {
     const int tile = blockIdx.y * gridDim.x + blockIdx.x;
     part_sum[tile] = d_sum;
@@ -359,7 +427,7 @@ detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
     unsigned int ticket;
     asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
                  : "=r"(ticket)
-                 : "l"(counters + map)
+                 : "l"(counters + z)
                  : "memory");
     s_last = ticket == static_cast<unsigned int>(n_tiles - 1);
   }
@@ -380,10 +448,49 @@ detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
   }
   block_sum_max(a, mx, s_sum, s_max);
   if (threadIdx.x == 0) {
-    noise[map] = a * inv_cells;
-    rawmax[map] = fmaxf(0.0f, mx);
-    counters[map] = 0u;
+    noise[z] = a * inv_cells;
+    rawmax[z] = fmaxf(0.0f, mx);
+    counters[z] = 0u;
   }
+}
+
+// Map mode: grid z is the map of the stack.
+template <typename In>
+__global__ void __launch_bounds__(kThreads)
+detect_tile(const In* __restrict__ in, const float* __restrict__ scale,
+            const float* __restrict__ cell_ok, float* __restrict__ db,
+            float* __restrict__ keep, unsigned int* __restrict__ counters,
+            float* __restrict__ part_sum, float* __restrict__ part_max,
+            float* __restrict__ noise, float* __restrict__ rawmax, int nr,
+            int nc, int n_guard, int n_train, int win_rows, int win_cols,
+            float inv_cells) {
+  const long long base = static_cast<long long>(blockIdx.z) * nr * nc;
+  const Src<In> src{nullptr, in + base, nullptr, nr, 0, 0};
+  detect_body<In, kTileRows>(src, scale, cell_ok, db + base, keep + base,
+                             counters, part_sum, part_max, noise, rawmax, nr,
+                             nc, n_guard, n_train, win_rows, win_cols,
+                             inv_cells);
+}
+
+// Row-block mode: grid z is the row block; noise and rawmax take the
+// block's dB sum and max(0, max dB) (inv_cells 1).
+template <typename In>
+__global__ void __launch_bounds__(kThreads)
+detect_blocks(const BlockTable<In> table, int kept,
+              const float* __restrict__ scale,
+              const float* __restrict__ cell_ok, float* __restrict__ db,
+              float* __restrict__ keep, unsigned int* __restrict__ counters,
+              float* __restrict__ part_sum, float* __restrict__ part_max,
+              float* __restrict__ sums, float* __restrict__ maxes, int nr,
+              int nc, int n_guard, int n_train, int win_rows, int win_cols) {
+  const int b = blockIdx.z;
+  const Src<In> src{table.above[b], table.main[b], table.below[b], kept,
+                    win_rows, table.first_row[b]};
+  const long long base = static_cast<long long>(b) * kept * nc;
+  detect_body<In, kBlockTileRows>(src, scale, cell_ok, db + base,
+                                  keep + base, counters, part_sum, part_max,
+                                  sums, maxes, nr, nc, n_guard, n_train,
+                                  win_rows, win_cols, 1.0f);
 }
 
 int tiles(int n, int tile) { return (n + tile - 1) / tile; }
@@ -414,19 +521,80 @@ cudaError_t launch(const void* in, const void* scale, const void* cell_ok,
   return cudaGetLastError();
 }
 
+template <typename In>
+cudaError_t launch_blocks(int n_blocks, const void* const* parts,
+                          const int* first_rows, const void* scale,
+                          const void* cell_ok, void* db, void* keep,
+                          void* scratch, void* sums, void* maxes, int kept,
+                          int nr, int nc, int n_guard, int n_train,
+                          int win_rows, int win_cols, int smem,
+                          cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        detect_blocks<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return e;
+  }
+  BlockTable<In> table;
+  for (int b = 0; b < n_blocks; ++b) {
+    table.above[b] = static_cast<const In*>(parts[b]);
+    table.main[b] = static_cast<const In*>(parts[n_blocks + b]);
+    table.below[b] = static_cast<const In*>(parts[2 * n_blocks + b]);
+    table.first_row[b] = first_rows[b];
+  }
+  const dim3 grid(tiles(nc, kTileCols), tiles(kept, kBlockTileRows),
+                  n_blocks);
+  const int n_tiles = grid.x * grid.y;
+  unsigned int* counters = static_cast<unsigned int*>(scratch);
+  float* part_sum = reinterpret_cast<float*>(counters + n_blocks);
+  float* part_max = part_sum + static_cast<long long>(n_blocks) * n_tiles;
+  detect_blocks<In><<<grid, kThreads, smem, stream>>>(
+      table, kept, static_cast<const float*>(scale),
+      static_cast<const float*>(cell_ok), static_cast<float*>(db),
+      static_cast<float*>(keep), counters, part_sum, part_max,
+      static_cast<float*>(sums), static_cast<float*>(maxes), nr, nc, n_guard,
+      n_train, win_rows, win_cols);
+  return cudaGetLastError();
+}
+
+// Makes `device` current where it is not, runs `fn`, and puts the previous
+// device back.
+template <typename Fn>
+int on_device(int device, Fn fn) {
+  int current = -1;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = fn();
+  if (current != device) cudaSetDevice(current);
+  return static_cast<int>(e);
+}
+
+// 32-bit words of scratch for a stack of ``batch`` maps of ``nr`` rows (or
+// ``batch`` row blocks of ``nr`` kept rows, ``tile_rows`` their tile): one
+// ticket counter per map (zero before the first launch; the kernel leaves
+// it zero), then the per-block partial sums and maxima of each map.
+long long scratch_words(int batch, int nr, int nc, int tile_rows) {
+  const long long n_tiles =
+      static_cast<long long>(tiles(nc, kTileCols)) * tiles(nr, tile_rows);
+  return static_cast<long long>(batch) * (1 + 2 * n_tiles);
+}
+
 }  // namespace
 
 extern "C" int detect_tile_rows() { return kTileRows; }
 extern "C" int detect_tile_cols() { return kTileCols; }
+extern "C" int detect_block_tile_rows() { return kBlockTileRows; }
+extern "C" int detect_max_blocks() { return kMaxBlocks; }
 extern "C" int detect_static_smem() { return kStaticSmem; }
 
-// 32-bit words of scratch for a stack of ``batch`` maps: one ticket counter
-// per map (zero before the first launch; the kernel leaves it zero), then
-// the per-block partial sums and maxima of each map.
 extern "C" long long detect_scratch_words(int batch, int nr, int nc) {
-  const long long n_tiles =
-      static_cast<long long>(tiles(nc, kTileCols)) * tiles(nr, kTileRows);
-  return static_cast<long long>(batch) * (1 + 2 * n_tiles);
+  return scratch_words(batch, nr, nc, kTileRows);
+}
+
+extern "C" long long detect_block_scratch_words(int n_blocks, int kept,
+                                                int nc) {
+  return scratch_words(n_blocks, kept, nc, kBlockTileRows);
 }
 
 // ``in`` is a float32 power map (complex_input 0) or a complex64 map
@@ -442,21 +610,52 @@ extern "C" int detect_launch(const void* in, int complex_input,
   if (batch < 1 || batch > 65535 || nr < 1 || nc < 1 || n_guard < 0 ||
       n_train < 0 || win_rows < 0 || win_cols < 0 ||
       static_cast<long long>(smem) <
-          4 * smem_floats(n_guard, n_train, win_rows, win_cols)) {
+          4 * smem_floats(kTileRows, n_guard, n_train, win_rows, win_cols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int current = -1;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = complex_input
-          ? launch<float2>(in, scale, cell_ok, db, keep, scratch, noise,
-                           rawmax, batch, nr, nc, n_guard, n_train, win_rows,
-                           win_cols, smem, s)
-          : launch<float>(in, scale, cell_ok, db, keep, scratch, noise,
-                          rawmax, batch, nr, nc, n_guard, n_train, win_rows,
-                          win_cols, smem, s);
-  if (current != device) cudaSetDevice(current);
-  return static_cast<int>(e);
+  return on_device(device, [&] {
+    return complex_input
+               ? launch<float2>(in, scale, cell_ok, db, keep, scratch, noise,
+                                rawmax, batch, nr, nc, n_guard, n_train,
+                                win_rows, win_cols, smem, s)
+               : launch<float>(in, scale, cell_ok, db, keep, scratch, noise,
+                               rawmax, batch, nr, nc, n_guard, n_train,
+                               win_rows, win_cols, smem, s);
+  });
+}
+
+// The row-block mode. ``parts`` holds 3 x n_blocks pointers: every block's
+// win_rows rows above, then every block's ``kept`` rows, then every
+// block's win_rows rows below, each part's rows contiguous (nc values a
+// row, float32 power or complex64 by ``complex_input``); ``first_rows``
+// the map row of each block's first kept row. ``db`` and ``keep`` are
+// (n_blocks, kept, nc) float32; ``sums`` and ``maxes`` (n_blocks,) take
+// each block's dB sum over its kept rows inside the map's ``nr`` rows and
+// max(0, their max dB); ``cell_ok`` is the map's (nr, nc).
+extern "C" int detect_launch_blocks(
+    int n_blocks, const void* const* parts, const int* first_rows,
+    int complex_input, const void* scale, const void* cell_ok, void* db,
+    void* keep, void* scratch, void* sums, void* maxes, int kept, int nr,
+    int nc, int n_guard, int n_train, int win_rows, int win_cols, int smem,
+    int device, void* stream) {
+  if (n_blocks < 1 || n_blocks > kMaxBlocks || kept < 1 || nr < 1 ||
+      nc < 1 || n_guard < 0 || n_train < 0 || win_rows < 0 || win_cols < 0 ||
+      static_cast<long long>(smem) <
+          4 * smem_floats(kBlockTileRows, n_guard, n_train, win_rows,
+                          win_cols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&] {
+    return complex_input
+               ? launch_blocks<float2>(n_blocks, parts, first_rows, scale,
+                                       cell_ok, db, keep, scratch, sums,
+                                       maxes, kept, nr, nc, n_guard, n_train,
+                                       win_rows, win_cols, smem, s)
+               : launch_blocks<float>(n_blocks, parts, first_rows, scale,
+                                      cell_ok, db, keep, scratch, sums, maxes,
+                                      kept, nr, nc, n_guard, n_train,
+                                      win_rows, win_cols, smem, s);
+  });
 }

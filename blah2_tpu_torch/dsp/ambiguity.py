@@ -22,6 +22,8 @@ cpi, Hamming-rounded nfft = 2·n_corr − 1.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 from torch import nn
@@ -162,3 +164,24 @@ def map_metrics(z: torch.Tensor):
     noise = torch.mean(db)
     raw_max = torch.clamp(torch.max(db), min=0.0)
     return db, noise, raw_max - noise
+
+
+def map_partials(db: torch.Tensor, inside: Optional[torch.Tensor] = None):
+    """The row-parallel half of :func:`map_metrics`: the dB sum (added in
+    float64, rounded to db's type) and the max dB over the last two
+    dimensions of ``db``, over the rows where ``inside`` (bool,
+    broadcastable to db's leading dimensions and rows) holds."""
+    total, peak = db, db
+    if inside is not None:
+        total = torch.where(inside[..., None], db, 0.0)
+        peak = torch.where(inside[..., None], db, -torch.inf)
+    return (torch.sum(total, dim=(-2, -1), dtype=torch.float64).to(db.dtype),
+            torch.amax(peak, dim=(-2, -1)))
+
+
+def map_finish(total: torch.Tensor, peak: torch.Tensor, n_cells: int):
+    """(noise_power, max_power) of :func:`map_metrics` from the dB sum and
+    max over a whole map of ``n_cells`` cells. The sum's order differs
+    from ``torch.mean``'s, so noise_power may differ in its last bits."""
+    noise = total / n_cells
+    return noise, torch.clamp(peak, min=0.0) - noise

@@ -16,11 +16,15 @@ Parity with reference `src/process/detection/CfarDetector1D.{h,cpp}`:
 The detection list has a fixed capacity (``max_detections``), filled in the
 reference's row-major scan order; ``count`` may exceed it. Row and column
 indices are int64, torch's index type.
+
+A detector runs in two stages, which the row-sharded pipeline runs apart:
+:meth:`_CfarBase.hits` on any block of rows (CFAR needs no row but its
+own), and :meth:`_CfarBase.extract` on the whole map's mask and dB map.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -151,36 +155,55 @@ class _CfarBase(nn.Module):
         g, t, nc = self.n_guard, self.n_train, self.n_cols
         maxo = g + t
         p_left = power.clone()
-        p_left[:, 0] = fill
+        p_left[..., 0] = fill
         pl = F.pad(p_left, (maxo, 0), value=fill)
         pr = F.pad(power, (0, maxo), value=fill)
         for o in range(g + 1, maxo + 1):
-            yield pl[:, maxo - o: maxo - o + nc]
-            yield pr[:, o: o + nc]
+            yield pl[..., maxo - o: maxo - o + nc]
+            yield pr[..., o: o + nc]
 
     def _hits(self, power: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def hits(self, power: torch.Tensor,
+             rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The detection mask of (..., R, n_cols) cell power (|z|² in
+        ``real_dtype``): threshold hits in cells whose row and column the
+        geometry keeps. ``rows``: the map rows of the R rows, int64,
+        broadcastable to (..., R); rows at or past ``n_rows`` are outside
+        the map. None: the whole map. The geometry is taken to the power's
+        device (a row block may lie on another card than the module)."""
+        dev = power.device
+        row_ok = self._row_ok.to(dev)
+        if rows is not None:
+            row_ok = F.pad(row_ok, (0, 1))[rows.clamp(max=self.n_rows)]
+        return self._hits(power) & row_ok[..., None] & self._col_ok.to(dev)
+
+    def extract(self, mask: torch.Tensor, db: torch.Tensor,
+                noise_power: torch.Tensor) -> CfarDetections:
+        """The detection list of an (n_rows, n_cols) mask: its first
+        ``max_detections`` cells in raster order, SNR ``db`` (10·log10|z|)
+        − noise_power in ``real_dtype``."""
+        row, col, valid, count = extract_topk(
+            mask.reshape(-1), self.n_cols, self.max_detections)
+        rd = self.real_dtype
+        return CfarDetections(
+            row=row,
+            col=col,
+            delay=self._delay_axis[col],
+            doppler=self._doppler_axis[row],
+            snr=db[row, col].to(rd) - noise_power.to(rd),
+            valid=valid,
+            count=count,
+        )
 
     def forward(self, z: torch.Tensor,
                 noise_power: torch.Tensor) -> CfarDetections:
         """CFAR on a complex (n_rows, n_cols) delay-Doppler map, with the
         scalar map noise power in dB."""
         mag = torch.abs(z).to(self.real_dtype)
-        power = mag * mag
-        snr_db = 10.0 * torch.log10(mag) - noise_power.to(self.real_dtype)
-        detect = (self._hits(power)
-                  & self._row_ok[:, None] & self._col_ok[None, :])
-        row, col, valid, count = extract_topk(
-            detect.reshape(-1), self.n_cols, self.max_detections)
-        return CfarDetections(
-            row=row,
-            col=col,
-            delay=self._delay_axis[col],
-            doppler=self._doppler_axis[row],
-            snr=snr_db[row, col],
-            valid=valid,
-            count=count,
-        )
+        return self.extract(self.hits(mag * mag), 10.0 * torch.log10(mag),
+                            noise_power)
 
 
 class CfarDetector(_CfarBase):
@@ -210,7 +233,7 @@ class CfarDetector(_CfarBase):
         train = torch.zeros_like(power)
         for s in self._train_slices(power, 0.0):
             train = train + s
-        return power > self._thresh_scale[None, :] * train
+        return power > self._thresh_scale.to(power.device)[None, :] * train
 
 
 class OsCfarDetector(_CfarBase):
@@ -259,9 +282,10 @@ class OsCfarDetector(_CfarBase):
         train = torch.sort(torch.stack(
             list(self._train_slices(power, float("inf"))), dim=-1),
             dim=-1).values
-        kth = torch.take_along_dim(
-            train, self._k_idx[None, :, None], dim=-1)[..., 0]
-        threshold = self._alpha[None, :] * kth
+        dev = power.device
+        idx = self._k_idx.to(dev).reshape((1,) * (train.dim() - 2) + (-1, 1))
+        kth = torch.take_along_dim(train, idx, dim=-1)[..., 0]
+        threshold = self._alpha.to(dev)[None, :] * kth
         return (power > threshold) & torch.isfinite(threshold)
 
 

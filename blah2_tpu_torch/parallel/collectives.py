@@ -11,6 +11,10 @@ is plain tensor arithmetic across the list:
     every run and on every rank;
   - :func:`psum_scatter` is ``psum_scatter(..., tiled=True)``: the sum,
     split along one dimension, block ``p`` to the rank at axis index ``p``;
+  - :func:`pmax` is ``lax.pmax`` and :func:`all_gather` is
+    ``all_gather(..., tiled=True)`` of one or more sharded values (the
+    group's blocks joined in rank order), both given where the sharded
+    step reads them: at each group's first rank only, None at the others;
   - :func:`ppermute_from_next` and :func:`ppermute_from_prev` are the
     open-chain permutes of the halo exchange, with zeros where a rank has no
     source;
@@ -30,7 +34,8 @@ Byte counts (the counterpart of ``blah2_tpu/parallel/commstats.py``, which
 reads them from compiled HLO): inside ``with count_bytes(mesh) as ops:``
 every collective call appends one :class:`CollectiveOp` with the bytes one
 rank contributes, as the HLO counts them (a psum or a permute: the rank's
-payload; a psum_scatter: the rank's block of the result).
+payload; a psum_scatter: the rank's block of the result; an all-gather:
+the gathered result).
 """
 
 from __future__ import annotations
@@ -45,9 +50,10 @@ from blah2_tpu_torch.parallel.mesh import RadarMesh
 
 
 class CollectiveOp(NamedTuple):
-    kind: str              # "psum", "psum_scatter" or "permute"
-    axis: str
-    shape: tuple           # one rank's payload (psum_scatter: its block)
+    kind: str              # "psum", "pmax", "psum_scatter", "all_gather"
+    axis: str              # or "permute"
+    shape: tuple           # one rank's payload (psum_scatter: its block;
+    #                        all_gather: the gathered result)
     dtype: torch.dtype
     bytes_per_rank: int
 
@@ -106,33 +112,107 @@ def gather_ranks(xs: List[torch.Tensor], mesh: RadarMesh) -> List:
     return out
 
 
-def _group_sums(xs: List[torch.Tensor], mesh: RadarMesh,
-                axis: str) -> List[torch.Tensor]:
-    """Each local rank's group sum, in rank order, on the rank's device."""
+def _group_sums(xs: List[torch.Tensor], mesh: RadarMesh, axis: str,
+                op=torch.add, first_only: bool = False) -> List:
+    """Each local rank's group reduction by ``op`` (a sum by default), in
+    rank order, on the rank's device; with ``first_only``, at each group's
+    first rank only (None elsewhere)."""
     if mesh.crosses(axis):
         xs = gather_ranks(xs, mesh)
     out: List = [None] * len(xs)
     for group in mesh.groups(axis):
         per_device: dict = {}
-        for r in group:
+        for r in group[:1] if first_only else group:
             if not mesh.is_local(r):
                 continue
             dev = xs[r].device
             if dev not in per_device:
                 acc = xs[group[0]].to(dev)
                 for q in group[1:]:
-                    acc = acc + xs[q].to(dev)
+                    acc = op(acc, xs[q].to(dev))
                 per_device[dev] = acc
             out[r] = per_device[dev]
     return out
 
 
-def psum(xs: List[torch.Tensor], mesh: RadarMesh,
-         axis: str = "pulse") -> List[torch.Tensor]:
-    """``lax.psum``: every rank gets the sum over its ``axis`` group."""
+def psum(xs: List[torch.Tensor], mesh: RadarMesh, axis: str = "pulse",
+         first_only: bool = False) -> List[torch.Tensor]:
+    """``lax.psum``: every rank gets the sum over its ``axis`` group (with
+    ``first_only``, only each group's first rank, where only it is read:
+    ranks on other devices are then spared their copies)."""
     x0 = local(xs, mesh)
     record(mesh, "psum", axis, x0.shape, x0.dtype)
-    return _group_sums(xs, mesh, axis)
+    return _group_sums(xs, mesh, axis, first_only=first_only)
+
+
+def pmax(xs: List[torch.Tensor], mesh: RadarMesh,
+         axis: str = "pulse") -> List[torch.Tensor]:
+    """``lax.pmax`` where the step reads it: the elementwise max over each
+    ``axis`` group, at the group's first rank (None at the others)."""
+    x0 = local(xs, mesh)
+    record(mesh, "pmax", axis, x0.shape, x0.dtype)
+    return _group_sums(xs, mesh, axis, torch.maximum, first_only=True)
+
+
+def all_gather(fields: List[List[torch.Tensor]], mesh: RadarMesh,
+               axis: str = "pulse", dim: int = 1) -> List:
+    """``lax.all_gather(..., axis=dim, tiled=True)`` of each sharded value
+    in ``fields``, where the step reads it: at the first rank of each
+    ``axis`` group that lies in this process, the tuple of the fields'
+    gathered tensors (the group's blocks joined along ``dim`` in rank
+    order, on that rank's device); None at every other rank. Over
+    several processes every local rank's fields travel as one byte buffer
+    in one process-group all-gather. Records one op per field, its
+    gathered shape."""
+    n = mesh.shape[axis]
+    for xs in fields:
+        x0 = local(xs, mesh)
+        shape = list(x0.shape)
+        shape[dim] *= n
+        record(mesh, "all_gather", axis, shape, x0.dtype)
+    if mesh.crosses(axis):
+        fields = _gather_fields(fields, mesh)
+    out: List = [None] * mesh.size
+    for group in mesh.groups(axis):
+        first = group[0]
+        if mesh.is_local(first):
+            dev = fields[0][first].device
+            out[first] = tuple(torch.cat([xs[r].to(dev) for r in group],
+                                         dim=dim) for xs in fields)
+    return out
+
+
+def _gather_fields(fields: List[List[torch.Tensor]],
+                   mesh: RadarMesh) -> List[List[torch.Tensor]]:
+    """Every rank's fields in this process (other processes' on this
+    process's first rank's device): each local rank's fields as bytes,
+    each field's padded to 8, in one all-gather over the processes."""
+    home = mesh.device
+    specs = []
+    for xs in fields:
+        x0 = local(xs, mesh)
+        nbytes = x0.numel() * x0.element_size()
+        specs.append((x0.shape, x0.dtype, nbytes, -(-nbytes // 8) * 8))
+    room = sum(spec[3] for spec in specs)
+    mine = torch.zeros((mesh.per_process, room), dtype=torch.uint8,
+                       device=home)
+    for i, r in enumerate(mesh.local_ranks):
+        off = 0
+        for xs, (_, _, nbytes, pad) in zip(fields, specs):
+            mine[i, off:off + nbytes] = xs[r].to(home).contiguous() \
+                .reshape(-1).view(torch.uint8)
+            off += pad
+    out = [list(xs) for xs in fields]
+    for p, block in enumerate(distributed.all_gather(mine)):
+        if p == mesh.process_index:
+            continue
+        for i, raw in enumerate(block.unbind(0)):
+            r = p * mesh.per_process + i
+            off = 0
+            for k, (shape, dtype, nbytes, pad) in enumerate(specs):
+                out[k][r] = raw[off:off + nbytes].view(dtype).reshape(shape)
+                off += pad
+    return out
 
 
 def psum_scatter(xs: List[torch.Tensor], mesh: RadarMesh,

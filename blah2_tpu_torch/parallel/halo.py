@@ -15,7 +15,9 @@ names so that a ``--halo-backend`` option passes through unchanged:
 
 A sharded value is a list with one tensor per rank of the mesh (None at the
 ranks of another process); the halo is taken along the last dimension, so a
-leading CPI batch rides along.
+leading CPI batch rides along, or, by :func:`rows_from_next` and
+:func:`rows_from_prev`, as whole rows along dimension −2 (each CPI's rows
+of a (B, R, n) block are one run, so the payload passes as it lies).
 """
 
 from __future__ import annotations
@@ -61,3 +63,32 @@ def shift_from_prev(vs: List[torch.Tensor], count: int, mesh: RadarMesh,
     zeros on rank 0 of each ring."""
     return _shift([None if v is None else v[..., -count:] for v in vs], mesh,
                   axis, backend, collective_id, from_next=False)
+
+
+def _rows(vs, count, mesh, axis, backend, collective_id, from_next):
+    """``count`` ≥ 1 rows of dimension −2, the head or the tail of each
+    block, shifted with the blocks' last two dimensions flattened; a
+    (B, count, n) block per rank."""
+    if count < 1:
+        raise ValueError(f"halo: a row halo of {count} rows")
+    n = next(v for v in vs if v is not None).shape[-1]
+    parts = [None if v is None else v.flatten(-2)[..., :count * n]
+             if from_next else v.flatten(-2)[..., -count * n:] for v in vs]
+    out = _shift(parts, mesh, axis, backend, collective_id, from_next)
+    return [None if o is None else o.unflatten(-1, (count, n)) for o in out]
+
+
+def rows_from_next(vs: List[torch.Tensor], count: int, mesh: RadarMesh,
+                   axis: str = "pulse", backend: str = "ppermute",
+                   collective_id: int = 0) -> List[torch.Tensor]:
+    """First ``count`` rows (dimension −2) of the *next* rank's block
+    (d ← d+1); zeros on the last rank of each ring."""
+    return _rows(vs, count, mesh, axis, backend, collective_id, True)
+
+
+def rows_from_prev(vs: List[torch.Tensor], count: int, mesh: RadarMesh,
+                   axis: str = "pulse", backend: str = "ppermute",
+                   collective_id: int = 0) -> List[torch.Tensor]:
+    """Last ``count`` rows (dimension −2) of the *previous* rank's block
+    (d ← d−1); zeros on rank 0 of each ring."""
+    return _rows(vs, count, mesh, axis, backend, collective_id, False)

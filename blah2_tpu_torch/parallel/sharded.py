@@ -28,11 +28,27 @@ module's:
   - spectrum: local fold per rank, (n_spectrum,) partials psum'd; sub-CPI
     spectra (``process.spectrum.nSub`` > 1) the same with one masked fold
     per segment, psum'd as a (k, n_spectrum) stack;
-  - detection on the map gathered per cpi row in rank order, outside the
-    ranks, once per row on the process that owns the row's first rank. JAX
-    lets GSPMD partition that per-row work; the gather computes the same
-    function. The fused detector, when asked for, runs whatever the CFAR
-    kind, as the JAX module's ``use_pallas_detect`` does
+  - detection, row-sharded (the default at 1 × 4 and 2 × 2): each pulse
+    rank detects its own Doppler rows, as JAX's GSPMD partitions that
+    per-row work (`blah2_tpu/parallel/sharded.py:124-133, 651-690`). A
+    rank forms the dB rows, the partial dB sum and max over its rows inside
+    the map (the last rank's phantom rows are outside it), and the mask:
+    CFAR hits (CFAR runs along delay only, so a rank needs no other rows)
+    or, with the fused detector, the centroid keep of the detect kernel's
+    row-block mode, whose window reaches ``win_rows`` rows into each
+    neighbour's block (row halos, cids 5 and 6, through the halo backend).
+    The partials are psum'd and pmax'd over ``pulse`` into noise and
+    rawmax; the float32 dB rows and the one-byte mask are all-gathered over
+    the row, 5 B a cell where the complex map was 8; the detection list
+    (raster-order extraction, centroid, interpolation) is formed on the
+    gathered rows, once per cpi row on the process that owns its first
+    rank. The products are those of the single-device detectors on the
+    gathered map, bit for bit but for noise_power and max_power, whose dB
+    sum is added in another order, and snr, delay and doppler, which
+    interpolation forms on db − noise. Replicated (``row_shard`` off):
+    the psum'd map of the row's first rank, detected there whole. The
+    fused detector, when asked for, runs whatever the CFAR kind, as the
+    JAX module's ``use_pallas_detect`` does
     (`blah2_tpu/parallel/sharded.py:669`): it computes CA-CFAR.
 
 Clutter correlations are linear (zero-extended), as in the JAX module: the
@@ -57,7 +73,8 @@ from torch import nn
 
 from blah2_tpu_torch.config import Config
 from blah2_tpu_torch.device import complex_of_parts, real_dtype
-from blah2_tpu_torch.dsp.ambiguity import AmbiguityProcessor
+from blah2_tpu_torch.dsp.ambiguity import (AmbiguityProcessor, map_finish,
+                                           map_partials)
 from blah2_tpu_torch.dsp.centroid import CentroidFilter
 from blah2_tpu_torch.dsp.cfar import CfarDetections, make_cfar
 from blah2_tpu_torch.dsp.clutter import solve_normal_equations
@@ -69,9 +86,10 @@ from blah2_tpu_torch.dsp.spectrum import SpectrumAnalyser
 from blah2_tpu_torch.ops.detect import FusedDetector
 from blah2_tpu_torch.ops.halo import halo_permute
 from blah2_tpu_torch.parallel import distributed
-from blah2_tpu_torch.parallel.collectives import (gather_ranks, psum,
+from blah2_tpu_torch.parallel.collectives import (all_gather, pmax, psum,
                                                   psum_scatter)
-from blah2_tpu_torch.parallel.halo import (BACKENDS, shift_from_next,
+from blah2_tpu_torch.parallel.halo import (BACKENDS, rows_from_next,
+                                           rows_from_prev, shift_from_next,
                                            shift_from_prev)
 from blah2_tpu_torch.parallel.mesh import RadarMesh
 
@@ -92,6 +110,13 @@ def pick_local_segments(block_len: int, n_lags: int,
             if s >= floor and abs(s - target) < abs(block_len // best - target):
                 best = k
     return best
+
+
+def rows_fit_window(fused_detector, rows: int) -> bool:
+    """Whether row blocks of ``rows`` rows hold the fused detector's
+    centroid halo (``win_rows`` rows, taken from the neighbouring rank
+    alone); always without the fused detector."""
+    return fused_detector is None or fused_detector.win_rows <= rows
 
 
 def _stack_detections(dets: List[CfarDetections]) -> CfarDetections:
@@ -157,9 +182,10 @@ class ShardedCpiPipeline(nn.Module):
 
     ``halo_backend``: "ppermute" (collectives' open-chain permute) or
     "pallas" (the CUDA halo kernel on a card, its plain twin on the CPU).
-    ``use_fused_detect``: the fused detector (``csrc/detect.cu`` on a card)
-    on the whole (B, nr, nc) batch in one call; off by default, as JAX's
-    ``use_pallas_detect``.
+    ``use_fused_detect``: the fused detector (``csrc/detect.cu`` on a card):
+    row-sharded, its row-block mode on every row block of a card in one
+    launch; replicated, the whole (B, nr, nc) batch in one call. Off by
+    default, as JAX's ``use_pallas_detect``.
     """
 
     def __init__(
@@ -200,14 +226,41 @@ class ShardedCpiPipeline(nn.Module):
         self.nd_pad = -(-min_pulses // self.n_pulse_axis) * self.n_pulse_axis
         self.n_pad = self.nd_pad * amb.n_corr
         self.block_len = self.n_pad // self.n_pulse_axis
+        self.detection_enabled = proc.detection.enable
+        self.fused_detector = None
+        if self.detection_enabled:
+            self.cfar = make_cfar(
+                proc.detection, amb.delay_axis, amb.doppler_axis,
+                max_detections=max_detections, device=device)
+            self.centroid = CentroidFilter(
+                proc.detection.n_centroid, proc.detection.n_centroid,
+                1.0 / proc.data.cpi)
+            self.interpolate = PeakInterpolator(
+                True, True, amb.doppler_resolution, amb.n_doppler_bins,
+                amb.n_delay_bins)
+            if use_fused_detect:
+                self.fused_detector = FusedDetector.from_config(
+                    proc, amb, max_detections=max_detections, device=device)
+
         # Row-sharded Doppler output: the Doppler reduction becomes a
         # psum_scatter of row blocks (the JAX module's crossover: at least 8
-        # rows a rank, or one rank on the axis).
+        # rows a rank, or one rank on the axis). The fused detector's row
+        # blocks take their centroid halo from the neighbouring rank alone,
+        # so "auto" keeps the replicated layout where the window reaches
+        # past it.
+        rows = -(-nd // self.n_pulse_axis)
         if row_shard == "auto":
-            self._row_shard = (nd // self.n_pulse_axis) >= 8 or \
-                self.n_pulse_axis == 1
+            self._row_shard = (rows_fit_window(self.fused_detector, rows)
+                               and (nd // self.n_pulse_axis >= 8
+                                    or self.n_pulse_axis == 1))
         else:
             self._row_shard = bool(row_shard)
+            if self._row_shard and not rows_fit_window(self.fused_detector,
+                                                       rows):
+                raise ValueError(
+                    f"the centroid window's {self.fused_detector.win_rows}"
+                    f" rows reach past the neighbouring rank's {rows}: "
+                    f"use fewer pulse ranks or row_shard=False")
         self.nd_rows_pad = -(-nd // self.n_pulse_axis) * self.n_pulse_axis \
             if self._row_shard else nd
         w_pad = torch.zeros((self.nd_rows_pad, self.nd_pad), dtype=dtype,
@@ -337,22 +390,8 @@ class ShardedCpiPipeline(nn.Module):
         # Over several processes: the per-CPI fields of the products, by
         # (CPIs a row, CPIs per process).
         self._product_spec: dict = {}
-
-        self.detection_enabled = proc.detection.enable
-        self.fused_detector = None
-        if self.detection_enabled:
-            self.cfar = make_cfar(
-                proc.detection, amb.delay_axis, amb.doppler_axis,
-                max_detections=max_detections, device=device)
-            self.centroid = CentroidFilter(
-                proc.detection.n_centroid, proc.detection.n_centroid,
-                1.0 / proc.data.cpi)
-            self.interpolate = PeakInterpolator(
-                True, True, amb.doppler_resolution, amb.n_doppler_bins,
-                amb.n_delay_bins)
-            if use_fused_detect:
-                self.fused_detector = FusedDetector.from_config(
-                    proc, amb, max_detections=max_detections, device=device)
+        # Row-sharded detection: the map rows of each device's row blocks.
+        self._block_rows: dict = {}
 
     # -- per-rank stages ----------------------------------------------------
     def _const(self, name: str, dev: torch.device) -> torch.Tensor:
@@ -635,29 +674,21 @@ class ShardedCpiPipeline(nn.Module):
 
             subs = psum(self._per_rank(sub_folds, xs), mesh, "pulse")
 
-        # Gather per cpi row, in rank order, onto this process's first
-        # rank's device, for the rows whose first rank is here: a row-sharded
-        # map from every rank of the row (over the processes where a row
-        # spans several), else the psum'd map of the row's first rank.
-        nd = self.ambiguity.n_doppler_bins
-        if self._row_shard and mesh.crosses("pulse"):
-            zs = gather_ranks(zs, mesh)
+        # Row-sharded: each rank detects its rows (collectives, so every
+        # process takes part). Then per cpi row whose first rank is here,
+        # onto this process's first rank's device: the products of the
+        # row's CPIs (replicated: the psum'd map of the row's first rank,
+        # detected here).
+        detected = self._detect_rows(zs) if self._row_shard else None
         rows = [g for g in mesh.groups("pulse") if mesh.is_local(g[0])]
         out = None
         if rows:
-            z_rows, ok_rows, fold_rows, sub_rows = [], [], [], []
+            ok_rows, fold_rows, sub_rows = [], [], []
             for group in rows:
-                if self._row_shard:
-                    z = torch.cat([zs[r].to(home) for r in group],
-                                  dim=1)[:, :nd]
-                else:
-                    z = zs[group[0]].to(home)
-                z_rows.append(z)
                 ok_rows.append(oks[group[0]].to(home))
                 fold_rows.append(folds[group[0]].to(home))
                 if subs is not None:
                     sub_rows.append(subs[group[0]].to(home))
-            z = torch.cat(z_rows)
             clutter_ok = torch.cat(ok_rows)
             spec_db = SpectrumAnalyser.to_db(
                 self.spectrum.finish(torch.cat(fold_rows)))
@@ -665,7 +696,10 @@ class ShardedCpiPipeline(nn.Module):
             if subs is not None:
                 sub_db = SpectrumAnalyser.to_db(
                     self.spectrum_sub.finish(torch.cat(sub_rows)))
-            db, noise, max_power, det = self._detect(z)
+            if detected is None:
+                detected = self._detect(
+                    torch.cat([zs[g[0]].to(home) for g in rows]))
+            db, noise, max_power, det = detected
             out = CpiOutputs(db_map=db, noise_power=noise,
                              max_power=max_power, spectrum_db=spec_db,
                              clutter_ok=clutter_ok, detections=det,
@@ -694,8 +728,115 @@ class ShardedCpiPipeline(nn.Module):
         return _gather_products(out, counts, self._product_spec[key],
                                 self.device)
 
+    def _rows_halo(self, ms: Ranks, count: int, from_next: bool,
+                   cid: int) -> Ranks:
+        """``count`` rows of each rank's block from its neighbour (none
+        where ``count`` is 0)."""
+        if count == 0:
+            return self._per_rank(lambda r, m: m[:, :0], ms)
+        fn = rows_from_next if from_next else rows_from_prev
+        return fn(ms, count, self.mesh, "pulse", backend=self.halo_backend,
+                  collective_id=cid)
+
+    def _rows_of(self, dev: torch.device, first: tuple) -> torch.Tensor:
+        """The map rows of row blocks that start at ``first``: (n, 1, R)
+        int64 on ``dev``."""
+        key = (dev, first)
+        if key not in self._block_rows:
+            r = self.nd_rows_pad // self.n_pulse_axis
+            self._block_rows[key] = (
+                torch.tensor(first, device=dev)[:, None, None]
+                + torch.arange(r, device=dev))
+        return self._block_rows[key]
+
+    def _detect_rows(self, zs: Ranks):
+        """Row-parallel detection of the row-sharded map ``zs`` (each
+        rank's (b, R, nc) Doppler rows; the module docstring says how).
+        Returns ``(db, noise, max_power, detections)`` of the CPIs of the
+        cpi rows whose first rank is in this process, in row order, on this
+        process's first rank's device; None where it holds no such rank.
+        Every process calls it."""
+        mesh = self.mesh
+        nd, nc = self.ambiguity.n_doppler_bins, self.ambiguity.n_delay_bins
+        r_len = self.nd_rows_pad // self.n_pulse_axis
+        fused = self.detection_enabled and self.fused_detector is not None
+        if fused:
+            ms = self._per_rank(
+                lambda r, z: FusedDetector.kernel_input(z), zs)
+            wr = self.fused_detector.win_rows
+            above = self._rows_halo(ms, wr, False, 6)
+            below = self._rows_halo(ms, wr, True, 5)
+        by_dev: dict = {}
+        for r in mesh.local_ranks:
+            by_dev.setdefault(zs[r].device, []).append(r)
+        dbs, masks, totals, peaks = ([None] * mesh.size for _ in range(4))
+        for dev, ranks in by_dev.items():
+            first = tuple(mesh.axis_index(r, "pulse") * r_len for r in ranks)
+            b = zs[ranks[0]].shape[0]
+            if fused:
+                # One launch for every row block of the card.
+                got = self.fused_detector.rows(
+                    [(above[r][j], ms[r][j], below[r][j]) for r in ranks
+                     for j in range(b)], [f for f in first for _ in range(b)])
+                lead = (len(ranks), b)
+                db = got.db.view(lead + (r_len, nc))
+                mask = (got.keep > 0.0).view(lead + (r_len, nc))
+                total, peak = got.sums.view(lead), got.maxes.view(lead)
+            else:
+                rows = self._rows_of(dev, first)
+                mag = torch.abs(torch.stack([zs[r] for r in ranks]))
+                db = 10.0 * torch.log10(mag)
+                total, peak = map_partials(db, rows < nd)
+                mask = None
+                if self.detection_enabled:
+                    m = mag.to(self.cfar.real_dtype)
+                    mask = self.cfar.hits(m * m, rows)
+            for i, r in enumerate(ranks):
+                dbs[r], totals[r], peaks[r] = db[i], total[i], peak[i]
+                masks[r] = None if mask is None else mask[i]
+        # Read at each row's first rank only.
+        total = psum(totals, mesh, "pulse", first_only=True)
+        peak = pmax(peaks, mesh, "pulse")
+        fields = [dbs, masks] if self.detection_enabled else [dbs]
+        gathered = all_gather(fields, mesh, "pulse", dim=1)
+        owned = [g[0] for g in mesh.groups("pulse") if mesh.is_local(g[0])]
+        if not owned:
+            return None
+        home = self.device
+
+        def joined(values):
+            return torch.cat([v.to(home) for v in values])
+
+        db = joined(gathered[r][0][:, :nd] for r in owned)
+        noise, max_power = map_finish(joined(total[r] for r in owned),
+                                      joined(peak[r] for r in owned),
+                                      nd * nc)
+        batch = db.shape[0]
+        if not self.detection_enabled:
+            return db, noise, max_power, self._no_detections(batch)
+        mask = joined(gathered[r][1][:, :nd] for r in owned)
+        if fused:
+            det = self.fused_detector.detections(mask, db, noise)
+            dets = [self.interpolate(CfarDetections(*[f[i] for f in det]),
+                                     db[i] - noise[i]) for i in range(batch)]
+        else:
+            dets = [self.interpolate(self.centroid(self.cfar.extract(
+                mask[i], db[i], noise[i])), db[i] - noise[i])
+                for i in range(batch)]
+        return db, noise, max_power, _stack_detections(dets)
+
+    def _no_detections(self, batch: int) -> CfarDetections:
+        dev = self.device
+        f32 = torch.zeros((batch, 0), dtype=torch.float32, device=dev)
+        i64 = torch.zeros((batch, 0), dtype=torch.int64, device=dev)
+        return CfarDetections(
+            row=i64, col=i64, delay=f32, doppler=f32, snr=f32,
+            valid=torch.zeros((batch, 0), dtype=torch.bool, device=dev),
+            count=torch.zeros(batch, dtype=torch.int32, device=dev))
+
     def _detect(self, z: torch.Tensor):
-        """Map metrics and detections of the (B, nr, nc) batch."""
+        """Map metrics and detections of the whole (B, nr, nc) batch (the
+        replicated layout)."""
         batch = z.shape[0]
         if self.detection_enabled and self.fused_detector is not None:
             db, noise, max_power, det = self.fused_detector(z)
@@ -711,13 +852,7 @@ class ShardedCpiPipeline(nn.Module):
                 d = self.centroid(self.cfar(z[i], noise[i]))
                 dets.append(self.interpolate(d, db[i] - noise[i]))
             return db, noise, max_power, _stack_detections(dets)
-        f32 = torch.zeros((batch, 0), dtype=torch.float32, device=z.device)
-        i64 = torch.zeros((batch, 0), dtype=torch.int64, device=z.device)
-        det = CfarDetections(
-            row=i64, col=i64, delay=f32, doppler=f32, snr=f32,
-            valid=torch.zeros((batch, 0), dtype=torch.bool, device=z.device),
-            count=torch.zeros(batch, dtype=torch.int32, device=z.device))
-        return db, noise, max_power, det
+        return db, noise, max_power, self._no_detections(batch)
 
     # -- public ----------------------------------------------------------------
     def shard_inputs(self, xb, yb):
@@ -764,22 +899,29 @@ class ShardedCpiPipeline(nn.Module):
 
 def calibrate_row_shard(config: Config, mesh: RadarMesh, n_trials: int = 3,
                         **pipeline_kw) -> dict:
-    """Measure both Doppler-output layouts on THIS mesh and pick the winner.
+    """Measure both Doppler-output layouts on THIS mesh and pick the winner:
+    row-sharded (each rank detects its own rows) or replicated.
 
     Runs one step per layout per trial on random planes (the first call
     excluded; best of ``n_trials``) and returns ``{"row_shard": bool,
-    "ms_on": .., "ms_off": .., "pipeline": <the winning pipeline>}``. Each
+    "ms_on": .., "ms_off": .., "pipeline": <the winning pipeline>}``
+    (``ms_on`` None, and replicated, where the row blocks cannot hold the
+    fused detector's centroid window: :func:`rows_fit_window`). Each
     process times its local completion by the small fetch that ends each
     step; over several processes every process takes process 0's decision
     (per-process timings can disagree), so all run the same program. The
     halo kernel's error word is read after the trials."""
     rng = np.random.default_rng(0)
     b = mesh.shape["cpi"]
-    ms: dict = {}
+    ms: dict = {"ms_on": None}
     pipes: dict = {}
-    for name, flag in (("ms_on", True), ("ms_off", False)):
-        pipe = ShardedCpiPipeline(config, mesh, row_shard=flag,
-                                  **pipeline_kw)
+    off = ShardedCpiPipeline(config, mesh, row_shard=False, **pipeline_kw)
+    rows = -(-off.ambiguity.n_doppler_bins // off.n_pulse_axis)
+    layouts = [("ms_off", False, off)]
+    if rows_fit_window(off.fused_detector, rows):
+        layouts.insert(0, ("ms_on", True, ShardedCpiPipeline(
+            config, mesh, row_shard=True, **pipeline_kw)))
+    for name, flag, pipe in layouts:
         pipes[flag] = pipe
         n = config.n_samples
         xb = rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))
@@ -793,7 +935,7 @@ def calibrate_row_shard(config: Config, mesh: RadarMesh, n_trials: int = 3,
             best = min(best, 1e3 * (time.perf_counter() - t0))
         ms[name] = best
     halo_permute.check()
-    ms["row_shard"] = ms["ms_on"] <= ms["ms_off"]
+    ms["row_shard"] = ms["ms_on"] is not None and ms["ms_on"] <= ms["ms_off"]
     if mesh.process_count > 1:
         ms["row_shard"] = bool(distributed.broadcast_object(ms["row_shard"]))
     ms["pipeline"] = pipes[ms["row_shard"]]

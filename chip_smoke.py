@@ -152,11 +152,78 @@ def power_map(z):
     return z.real * z.real + z.imag * z.imag
 
 
+def row_blocks(m, n_blocks, win_rows, fill=7.0):
+    """Map ``m`` (nr, nc) cut into ``n_blocks`` row blocks of R = ceil(nr /
+    n_blocks) rows as the row-sharded path hands them to the detect
+    kernel: per block its (above, kept, below) row parts, views of one
+    padded copy (zeros past the map's edges, ``fill`` in the phantom rows
+    past its end, which the kernel must treat as outside the map), and
+    each block's first map row."""
+    import torch
+
+    nr, nc = m.shape
+    r_len = -(-nr // n_blocks)
+    wr = win_rows
+    padded = torch.cat([m.new_zeros((wr, nc)), m,
+                        m.new_full((n_blocks * r_len - nr, nc), fill),
+                        m.new_zeros((wr, nc))])
+    blocks = [(padded[d * r_len:d * r_len + wr],
+               padded[wr + d * r_len:wr + (d + 1) * r_len],
+               padded[wr + (d + 1) * r_len:2 * wr + (d + 1) * r_len])
+              for d in range(n_blocks)]
+    return blocks, [d * r_len for d in range(n_blocks)]
+
+
+def row_block_check(fd, m, n_blocks, what):
+    """The detect kernel's row-block mode on ``m`` cut in ``n_blocks``
+    against detect_rows_plain and against the kernel's map mode on the
+    whole map: one launch; keep equal to both, db the map mode's bits on
+    the map's rows and -inf on the phantom rows; the block sums within
+    1e-6 of the plain twin's, the maxima equal. Returns the largest
+    difference in dB (the sums' as a per-cell mean)."""
+    import torch
+
+    from blah2_tpu_torch.ops.detect import detect, detect_rows_plain
+
+    nr, nc = m.shape
+    blocks, first = row_blocks(m, n_blocks, fd.win_rows)
+    kw = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
+          fd.win_cols)
+    launches, rows = detect.launches, detect.row_launches
+    got = detect.rows(blocks, first, nr, *kw)
+    torch.cuda.synchronize()
+    check(detect.launches == launches + 1 and detect.row_launches == rows + 1,
+          f"{what}: {detect.launches - launches} launches")
+    want = detect_rows_plain(torch.stack([torch.cat(b) for b in blocks]),
+                             first, nr, *kw)
+    whole = detect(m.contiguous(), *kw)
+    torch.cuda.synchronize()
+    db = got.db.reshape(-1, nc)
+    check(torch.equal(got.keep, want.keep), f"{what}: keep differs from "
+          f"the plain twin")
+    check(torch.equal(got.keep.reshape(-1, nc)[:nr], whole.keep)
+          and torch.equal(db[:nr], whole.db), f"{what}: differs from the "
+          f"map mode")
+    check(bool(torch.isneginf(db[nr:]).all())
+          and not bool(got.keep.reshape(-1, nc)[nr:].any()),
+          f"{what}: phantom rows inside the map")
+    check(torch.equal(got.maxes, want.maxes), f"{what}: block maxima")
+    rel = float(((got.sums.double() - want.sums.double()).abs()
+                 / want.sums.double().abs().clamp(min=1.0)).max())
+    check(rel <= 1e-6, f"{what}: block sums differ by {rel} (relative)")
+    per_cell = float((got.sums.double() - want.sums.double()).abs().max()
+                     ) / (got.db.shape[1] * nc)
+    d_db = float((db[:nr] - want.db.reshape(-1, nc)[:nr]).abs().max())
+    return max(d_db, per_cell), int(got.keep.sum())
+
+
 def phase_kernel_vs_plain(dev):
     """The kernel against detect_plain on the card, on the complex64 map
     and on its float32 power: random 301 x 411 maps with targets, the tie
     case, more hits than capacity, a ragged 37 x 53 map, centroid windows
-    wider than a tile, and a stack of two; one launch a call."""
+    wider than a tile, and a stack of two; one launch a call. Then its
+    row-block mode against detect_rows_plain and its map mode on those
+    maps cut in row blocks. Returns the two modes' largest differences."""
     import numpy as np
     import torch
 
@@ -263,7 +330,23 @@ def phase_kernel_vs_plain(dev):
           and bool(det.valid[1].all()), "stack: overflow map not capped")
     print(f"kernel_vs_plain stack of 2: kept={int(got.keep.sum())} "
           f"max_abs_err_db={e:.3g}")
-    return err
+
+    # The row-block mode: the maps cut in row blocks, first, middle and
+    # last, halo rows past the map's edges and phantom rows past its end
+    # (the default map in 4 blocks of 76 rows, as a 1 x 4 mesh holds it;
+    # the wide case's 20 halo rows reach past a whole 16-row block).
+    rows_err = 0.0
+    for name, z, fd in cases:
+        zc = torch.from_numpy(z).to(dev)
+        n_blocks = 3 if name == "ragged" else 4
+        for kind, m in (("complex64", zc), ("float32",
+                                            power_map(zc).contiguous())):
+            e, kept = row_block_check(fd, m, n_blocks,
+                                      f"row blocks {name} {kind}")
+            rows_err = max(rows_err, e)
+        print(f"kernel_vs_plain row blocks {name}: {n_blocks} blocks, "
+              f"kept={kept} max_abs_err_db={e:.3g}")
+    return err, rows_err
 
 
 def phase_golden(dev, root):
@@ -706,12 +789,105 @@ def det_set(det, i):
     return set(zip(det.row[i][v].tolist(), det.col[i][v].tolist()))
 
 
+def gathered_form_check(sp, planes, what):
+    """One step of the row-sharded ``sp`` against the gathered form: the
+    rows of its map gathered and put through the unchanged single-device
+    detectors on the card (make_cfar + CentroidFilter + PeakInterpolator,
+    or FusedDetector's map mode): the dB map, the masks and the
+    detections' rows, columns, valid and count bit for bit; noise,
+    max_power, snr, delay and doppler within 1e-4 (dB, bins, Hz: the dB
+    sum is added in another order, and interpolation runs on db − noise).
+    Returns the largest of those differences and the valid detections."""
+    import torch
+
+    from blah2_tpu_torch.dsp.centroid import CentroidFilter
+    from blah2_tpu_torch.dsp.cfar import CfarDetections, make_cfar
+    from blah2_tpu_torch.dsp.interpolate import PeakInterpolator
+    from blah2_tpu_torch.ops.detect import FusedDetector, detect
+    from blah2_tpu_torch.parallel import collectives, sharded
+
+    check(sp._row_shard, f"{what}: not row-sharded")
+    seen = {}
+    detect_rows = sp._detect_rows
+
+    def rows(zs):
+        seen["zs"] = zs
+        return detect_rows(zs)
+
+    def gather(fields, mesh, axis="pulse", dim=1):
+        seen["gathered"] = collectives.all_gather(fields, mesh, axis, dim)
+        return seen["gathered"]
+
+    sp._detect_rows, sharded.all_gather = rows, gather
+    try:
+        out = sp(*planes)
+    finally:
+        del sp._detect_rows
+        sharded.all_gather = collectives.all_gather
+    proc, amb, home = sp.config.process, sp.ambiguity, sp.device
+    nd = amb.n_doppler_bins
+    groups = sp.mesh.groups("pulse")
+    z = torch.cat([torch.cat([seen["zs"][r] for r in g], dim=1)[:, :nd]
+                   for g in groups])
+    got_mask = torch.cat([seen["gathered"][g[0]][1][:, :nd]
+                          for g in groups])
+    k = sp.cfar.max_detections
+    interp = PeakInterpolator(True, True, amb.doppler_resolution, nd,
+                              amb.n_delay_bins)
+    if sp.fused_detector is not None:
+        fd = FusedDetector.from_config(proc, amb, max_detections=k,
+                                       device=home)
+        whole = detect(fd.kernel_input(z).contiguous(), fd._scale,
+                       fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
+                       fd.win_cols)
+        db, noise = whole.db, whole.noise
+        max_power = whole.rawmax - noise
+        mask = whole.keep > 0.0
+        det = fd.detections(mask, db, noise)
+        dets = [interp(CfarDetections(*[f[i] for f in det]),
+                       db[i] - noise[i]) for i in range(z.shape[0])]
+    else:
+        cfar = make_cfar(proc.detection, amb.delay_axis, amb.doppler_axis,
+                         max_detections=k, device=home)
+        centroid = CentroidFilter(proc.detection.n_centroid,
+                                  proc.detection.n_centroid,
+                                  1.0 / proc.data.cpi)
+        db = 10.0 * torch.log10(torch.abs(z))
+        noise = torch.mean(db, dim=(-2, -1))
+        max_power = torch.clamp(torch.amax(db, dim=(-2, -1)),
+                                min=0.0) - noise
+        mags = torch.abs(z).to(cfar.real_dtype)
+        mask = torch.stack([cfar.hits(m * m) for m in mags])
+        dets = [interp(centroid(cfar(z[i], noise[i])), db[i] - noise[i])
+                for i in range(z.shape[0])]
+    want = CfarDetections(*[torch.stack(f) for f in zip(*dets)])
+    torch.cuda.synchronize()
+    check(torch.equal(out.db_map, db), f"{what}: dB map differs from the "
+          f"gathered form")
+    check(torch.equal(got_mask, mask), f"{what}: mask differs from the "
+          f"gathered form")
+    for f in ("row", "col", "valid", "count"):
+        check(torch.equal(getattr(out.detections, f), getattr(want, f)),
+              f"{what}: detections' {f} differ from the gathered form")
+    diff = max(float((a.double() - b.double()).abs().max())
+               for a, b in ((out.noise_power, noise),
+                            (out.max_power, max_power),
+                            (out.detections.snr, want.snr),
+                            (out.detections.delay, want.delay),
+                            (out.detections.doppler, want.doppler)))
+    check(diff <= 1e-4, f"{what}: noise, max_power, snr, delay or doppler "
+          f"differ from the gathered form by {diff}")
+    return diff, int(want.valid.sum())
+
+
 def phase_sharded(dev, root):
     """The default config through the sharded pipeline on 1 x 4 and 2 x 2
-    meshes of logical ranks on the card: the halo kernel against the
-    ppermute backend, complex128 against the single-device linear pipeline,
-    both targets at complex64, the halo launches of one step, and the fused
-    detector on the batch against the unfused chain."""
+    meshes of logical ranks on the card, row-sharded: the halo kernel
+    against the ppermute backend, complex128 against the single-device
+    linear pipeline, both targets at complex64, the halo and detect
+    launches of one step (the detect kernel's row-block mode, once on the
+    card), the fused detector against the unfused chain, and both against
+    the gathered form."""
     import numpy as np
     import torch
 
@@ -742,18 +918,23 @@ def phase_sharded(dev, root):
             torch.cuda.synchronize()
             # The sharded main path: counts at 0 just before, read after.
             halo_permute.launches = detect.launches = 0
+            detect.row_launches = 0
             with count_bytes(mesh) as ops:
                 outs[backend] = sp(*planes)
             torch.cuda.synchronize()
             launches[shape, backend] = (halo_permute.launches,
-                                        detect.launches)
+                                        detect.launches, detect.row_launches)
         comm = summarize(ops)
         n_dev = len(mesh.distinct_devices())
-        check(launches[shape, "pallas"] == (4 * n_dev, 1),
-              f"{shape}: halo/detect launches of one step "
-              f"{launches[shape, 'pallas']}, want ({4 * n_dev}, 1)")
-        check(launches[shape, "ppermute"][0] == 0,
-              f"{shape}: the ppermute backend launched the halo kernel")
+        check(sp._row_shard, f"{shape}: not row-sharded")
+        # The 4 clutter shifts and the 2 row halos; one row-block launch.
+        check(launches[shape, "pallas"] == (6 * n_dev, n_dev, n_dev),
+              f"{shape}: halo/detect/row-block launches of one step "
+              f"{launches[shape, 'pallas']}, want ({6 * n_dev}, {n_dev}, "
+              f"{n_dev})")
+        check(launches[shape, "ppermute"] == (0, n_dev, n_dev),
+              f"{shape}: the ppermute backend's launches "
+              f"{launches[shape, 'ppermute']}")
         a, p = outs["ppermute"], outs["pallas"]
         check(torch.equal(a.db_map, p.db_map), f"{shape}: backends' maps")
         for k in a.detections._fields:
@@ -767,9 +948,15 @@ def phase_sharded(dev, root):
                   f"CPI {i}: {dets}")
         check(bool(p.clutter_ok.all()), f"{shape}: clutter solve failed")
 
-        # The unfused chain on the same batch.
+        # The unfused chain on the same batch; both against the gathered
+        # form.
         sp_u = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas")
         u = sp_u(*sp_u.shard_inputs(xb[:b], yb[:b]))
+        gathered = {}
+        for name, pipe in (("fused", sp), ("unfused", sp_u)):
+            gathered[name] = gathered_form_check(
+                pipe, pipe.shard_inputs(xb[:b], yb[:b]),
+                f"{shape} {name}")[0]
         d_map = float((u.db_map - p.db_map).abs().max())
         d_noise = float((u.noise_power - p.noise_power).abs().max())
         check(d_map <= 1e-4 and d_noise <= 1e-4,
@@ -799,29 +986,38 @@ def phase_sharded(dev, root):
               f"halo/detect launches={launches[shape, 'pallas']} "
               f"collective bytes a rank a step={json.dumps(comm)} "
               f"detections={dets} fused-unfused map {d_map:.3g} dB; "
-              f"complex128 vs single map {d128:.3g} dB noise {dn128:.3g} dB")
+              f"complex128 vs single map {d128:.3g} dB noise {dn128:.3g} dB;"
+              f" against the gathered form (largest of noise, max_power, "
+              f"snr, delay, doppler) {json.dumps(gathered)}")
     word = halo_permute.error()
     check(word == 0, f"halo kernel error word {word}")
-    return launches[(1, 4), "pallas"][0]
+    return launches[(1, 4), "pallas"]
 
 
 def phase_sharded_timing(dev, root, card):
     """The sharded CPI on a 1 x 4 mesh on the card (complex64, halo kernel,
-    fused detector): ms per step by CUDA events from planes on the device
-    to detections, peak memory, and from the profiler the device busy time,
-    the kernels per CPI and the halo kernel's device time and launches per
-    shift; then the main path's largest shift (409 complex64 samples from
-    the head of each rank's block, the edge zero-filled) through the halo
+    fused detector, row-sharded): ms per step by CUDA events from planes on
+    the device to detections, peak memory, and from the profiler the device
+    busy time, the kernels per CPI, the halo kernel's device time and
+    launches per shift and the detect kernel's (row-block mode) per step;
+    then the main path's largest shift (409 complex64 samples from the
+    head of each rank's block, the edge zero-filled) through the halo
     kernel, its plain twin and tensor copies of the same payload (events in
-    the order A B B A, and the profiler's device time of each)."""
+    the order A B B A, and the profiler's device time of each); the
+    row-block mode alone at the step's shapes (four 76-row blocks of the
+    301 x 411 complex64 map with 5 halo rows) against its plain twin; and
+    calibrate_row_shard's decision on this mesh."""
+    import numpy as np
     import torch
 
     from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.ops.detect import detect, detect_rows_plain
     from blah2_tpu_torch.ops.halo import (_edge, _source, halo_permute,
                                           halo_permute_plain)
     from blah2_tpu_torch.parallel.collectives import count_bytes
     from blah2_tpu_torch.parallel.halo import shift_from_next
-    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+    from blah2_tpu_torch.parallel.sharded import (ShardedCpiPipeline,
+                                                  calibrate_row_shard)
 
     cfg = load_config(os.path.join(root, "config", "config.yml"))
     quads, _ = default_scene(cfg)
@@ -847,8 +1043,9 @@ def phase_sharded_timing(dev, root, card):
             by_name = device_profile(lambda: sp(*planes), n)
         launches = halo_permute.launches
         shifts = sum(op.kind == "permute" for op in ops)
-        # Four shifts a step, one launch each on the one card.
-        check(launches == shifts == 4 * n,
+        # Six shifts a step (four of the clutter filter, the two row
+        # halos), one launch each on the one card.
+        check(launches == shifts == 6 * n,
               f"{launches} halo launches and {shifts} shifts in {n} CPIs")
         halo_n = sum(c for k, (_, c) in by_name.items()
                      if "halo_permute" in k)
@@ -902,6 +1099,52 @@ def phase_sharded_timing(dev, root, card):
                                "kernels of the masked shift (one a call)")
 
     prof_kern = profiled_whole(shift_window, "masked shift")
+
+    # The row-block mode alone at the step's shapes.
+    fd = sp.fused_detector
+    nr, nc = sp.ambiguity.n_doppler_bins, sp.ambiguity.n_delay_bins
+    rng = np.random.default_rng(2)
+    zmap = torch.from_numpy((rng.standard_normal((nr, nc))
+                             + 1j * rng.standard_normal((nr, nc)))
+                            .astype(np.complex64)).to(dev)
+    blocks, first = row_blocks(zmap, 4, fd.win_rows, fill=0.0)
+    # Halo rows in buffers of their own, as the row halos bring them.
+    blocks = [(a.clone(), k, b.clone()) for a, k, b in blocks]
+    joined = torch.stack([torch.cat(b) for b in blocks])
+    kw = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
+          fd.win_cols)
+
+    def rows_kernel():
+        detect.rows(blocks, first, nr, *kw)
+
+    def rows_plain():
+        detect_rows_plain(joined, first, nr, *kw)
+
+    rows_plain_a = cuda_ms(rows_plain, 50)
+    rows_kern_a = cuda_ms(rows_kernel, 500)
+    rows_kern_b = cuda_ms(rows_kernel, 500)
+    rows_plain_b = cuda_ms(rows_plain, 50)
+
+    def rows_window():
+        prof = device_profile(rows_kernel, m)
+        return prof, shortfall(sum(c for _, c in prof.values()), m,
+                               "row-block launches (one a call)")
+
+    prof_rows = profiled_whole(rows_window, "row-block mode")
+    r_len = blocks[0][1].shape[0]
+    # Each input read once: the rows the kernel reads, those inside the
+    # map (the kept rows, and the halo rows that lie in it: none above the
+    # first block, none below the last), complex64; cell_ok and scale.
+    # Each output written once: db and keep of every kept row (the phantom
+    # rows' too), the blocks' sums and maxima.
+    wr = fd.win_rows
+    n_rows_in = nr + sum(
+        len([g for g in (*range(f - wr, f), *range(f + r_len, f + r_len + wr))
+             if 0 <= g < nr]) for f in first)
+    rows_bytes = (n_rows_in * nc * 8 + nr * nc * 4 + nc * 4
+                  + len(blocks) * r_len * nc * 8 + len(blocks) * 8)
+    cal = calibrate_row_shard(cfg, mesh, halo_backend="pallas",
+                              use_fused_detect=True)
     word = halo_permute.error()
     check(word == 0, f"halo kernel error word {word}")
     # Each input read once and each output written once: the three ranks
@@ -925,6 +1168,20 @@ def phase_sharded_timing(dev, root, card):
             sum(c for _, c in prof_lib.values()) / m,
         "shift_device_ms": sum(t for t, _ in prof_kern.values()) / m / 1e3,
         "shift_bound_ms": halo_bytes / HBM_BYTES_PER_S * 1e3,
+        "detect_rows_device_ms_in_step": sum(
+            t for k, (t, _) in by_name.items() if "detect_blocks" in k)
+        / n / 1e3,
+        "detect_rows_launches_per_step": sum(
+            c for k, (_, c) in by_name.items() if "detect_blocks" in k) / n,
+        "rows": f"{len(blocks)} blocks of {r_len} + 2 x {fd.win_rows} rows "
+                f"x {nc} complex64, {n_rows_in} rows read",
+        "rows_ms": [rows_kern_a, rows_kern_b],
+        "rows_plain_ms": [rows_plain_a, rows_plain_b],
+        "rows_device_ms": sum(t for t, _ in prof_rows.values()) / m / 1e3,
+        "rows_bytes": rows_bytes,
+        "rows_bound_ms": rows_bytes / HBM_BYTES_PER_S * 1e3,
+        "calibrate_row_shard": {k: cal[k] for k in ("row_shard", "ms_on",
+                                                    "ms_off")},
         "card": card, "count": out.detections.count.tolist(),
         "top": top(by_name, n, 12),
     }
@@ -1477,10 +1734,12 @@ def phase_alternatives(dev, root, card):
 
 def phase_sharded_alternatives(dev, root, card):
     """ECA-B, NLMS and nSub 4 through the sharded pipeline on a 1 × 4 mesh
-    of logical ranks on the card: the halo kernel against ppermute, the
-    fused detect kernel against the unfused chain, the halo launches of one
-    step (one a shift on one card), complex128 on the card against the
-    sharded complex128 on the CPU, ms per step."""
+    of logical ranks on the card, row-sharded: the halo kernel against
+    ppermute, the fused detect kernel against the unfused chain and both
+    against the gathered form, the halo launches of one step (one a shift
+    on one card, the row halos' two included) and the detect kernel's
+    (one, its row-block mode), complex128 on the card against the sharded
+    complex128 on the CPU, ms per step."""
     import torch
 
     from blah2_tpu_torch.ops.detect import detect
@@ -1504,15 +1763,18 @@ def phase_sharded_alternatives(dev, root, card):
             torch.cuda.synchronize()
             # The sharded main path: counts at 0 just before, read after.
             halo_permute.launches = detect.launches = 0
+            detect.row_launches = 0
             with count_bytes(mesh) as ops:
                 outs[backend] = sp(*planes)
             torch.cuda.synchronize()
-            launches[backend] = (halo_permute.launches, detect.launches)
+            launches[backend] = (halo_permute.launches, detect.launches,
+                                 detect.row_launches)
         shifts = sum(op.kind == "permute" for op in ops)
-        want = {"eca-b": 3, "nlms": 3, "nsub4": 4}[name]
-        check(shifts == want and launches["pallas"] == (want, 1),
-              f"sharded {name}: {shifts} shifts, halo/detect launches "
-              f"{launches['pallas']}, want ({want}, 1)")
+        # The clutter filter's shifts and the fused detector's 2 row halos.
+        want = {"eca-b": 5, "nlms": 5, "nsub4": 6}[name]
+        check(shifts == want and launches["pallas"] == (want, 1, 1),
+              f"sharded {name}: {shifts} shifts, halo/detect/row-block "
+              f"launches {launches['pallas']}, want ({want}, 1, 1)")
         check(launches["ppermute"][0] == 0,
               f"sharded {name}: ppermute launched the halo kernel")
         a, p = outs["ppermute"], outs["pallas"]
@@ -1532,6 +1794,9 @@ def phase_sharded_alternatives(dev, root, card):
               f"noise differ by {d_fused} dB")
         check(det_set(u.detections, 0) == det_set(p.detections, 0),
               f"sharded {name}: fused and unfused detections differ")
+        d_gathered = max(gathered_form_check(
+            pipe, pipe.shard_inputs(x, y), f"sharded {name} {kind}")[0]
+            for kind, pipe in (("fused", sp), ("unfused", sp_u)))
 
         # complex128 on the card against the same on the CPU.
         s128 = {}
@@ -1559,6 +1824,7 @@ def phase_sharded_alternatives(dev, root, card):
                          "detect_launches_per_step": launches["pallas"][1],
                          "complex128_card_vs_cpu_db": d128,
                          "fused_vs_unfused_db": d_fused,
+                         "vs_gathered_form": d_gathered,
                          "targets_c64": ok, "ms_per_step": ms, "card": card}
         print(f"sharded_alternative {name} " + json.dumps(results[name]))
     word = halo_permute.error()
@@ -1763,7 +2029,7 @@ def worker_step(args) -> int:
     sp(*planes)  # the plans and the kernels' first use
     torch.cuda.synchronize()
     # The main path: counts at 0 just before, read just after.
-    halo_permute.launches = detect.launches = 0
+    halo_permute.launches = detect.launches = detect.row_launches = 0
     halo_permute.pairs = dict.fromkeys(halo_permute.pairs, 0)
     ms = []
     for _ in range(MP_STEPS):
@@ -1772,6 +2038,7 @@ def worker_step(args) -> int:
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
     counts = {"halo": halo_permute.launches, "detect": detect.launches,
+              "rows": detect.row_launches,
               "pairs": dict(halo_permute.pairs), "ms": ms,
               "backend": distributed.job().backend}
     halo_permute.check()
@@ -1818,7 +2085,9 @@ def phase_multiprocess(dev, root, card):
     halo pairs by route are as MP_PAIRS_PER_SHIFT says, and process 0's
     products are the bits of this process's own 1 x 4 step on the same
     scene (the same device type and the same sums in the same order),
-    both targets found."""
+    both targets found. Each process detects its own ranks' Doppler rows:
+    both launch the detect kernel (its row-block mode) once a step, and
+    the halo kernel six times (the 4 clutter shifts, the 2 row halos)."""
     import numpy as np
 
     from blah2_tpu_torch.config import load_config
@@ -1850,15 +2119,16 @@ def phase_multiprocess(dev, root, card):
     ok, dets = found(cpi_of(ref, 0), targets,
                      sp.ambiguity.doppler_resolution)
     check(all(ok), f"a target missed: {dets}")
-    shifts = 4 * MP_STEPS
+    shifts = 6 * MP_STEPS
     check([c["backend"] for c in every] == ["gloo"] * MP_PROCESSES,
           f"backends {[c['backend'] for c in every]}")
     check([c["halo"] for c in every] == [shifts] * MP_PROCESSES,
           f"halo launches {[c['halo'] for c in every]}, want {shifts} "
           f"in each process")
-    check([c["detect"] for c in every] == [MP_STEPS, 0],
-          f"detect launches {[c['detect'] for c in every]}, want "
-          f"[{MP_STEPS}, 0]")
+    check([c["detect"] for c in every] == [MP_STEPS] * MP_PROCESSES
+          and [c["rows"] for c in every] == [MP_STEPS] * MP_PROCESSES,
+          f"detect launches {[c['detect'] for c in every]}, row-block "
+          f"{[c['rows'] for c in every]}, want {MP_STEPS} in each process")
     pairs = {r: sum(c["pairs"][r] for c in every) for r in
              MP_PAIRS_PER_SHIFT}
     check(pairs == {r: n * shifts for r, n in MP_PAIRS_PER_SHIFT.items()},
@@ -1992,7 +2262,7 @@ def main() -> int:
             with open(log) as f:
                 print(f.read().strip())
 
-    err = phase_kernel_vs_plain(dev)
+    err, rows_err = phase_kernel_vs_plain(dev)
     halo_err = phase_halo_vs_plain(dev)
     phase_golden(dev, ROOT)
     pipe, packed, launches, _ = phase_default(dev, ROOT)
@@ -2002,7 +2272,7 @@ def main() -> int:
     timing = phase_timing(pipe, packed, card)
     prof = phase_profile(pipe, packed, timing["cpi_ms_median"])
     phase_nsub(dev, ROOT)
-    halo_launches = phase_sharded(dev, ROOT)
+    halo_launches, sharded_detect, _ = phase_sharded(dev, ROOT)
     sh = phase_sharded_timing(dev, ROOT, card)
     alt = phase_alternatives(dev, ROOT, card)
     sh_alt = phase_sharded_alternatives(dev, ROOT, card)
@@ -2027,7 +2297,11 @@ def main() -> int:
           f"{sh['cpi_ms_median']:.3f} ms/CPI median over {sh['cpis']} CPIs "
           f"(planes on device to detections); halo kernel "
           f"{min(sh['shift_ms']) * 1e3:.2f} us a shift, "
-          f"{sh['halo_device_ms'] * 1e3:.2f} us device")
+          f"{sh['halo_device_ms'] * 1e3:.2f} us device; detect row-block "
+          f"mode {min(sh['rows_ms']) * 1e3:.2f} us, "
+          f"{sh['rows_device_ms'] * 1e3:.2f} us device, bound "
+          f"{sh['rows_bound_ms'] * 1e3:.3f} us; calibrate_row_shard picks "
+          f"row_shard={sh['calibrate_row_shard']['row_shard']}")
     for k, v in alt.items():
         print(f"{k}, default config on {card}: "
               f"{v['ms_per_cpi']['median']:.3f} ms/CPI median of 10 "
@@ -2055,6 +2329,7 @@ def main() -> int:
             "runtime": runtime_launches, "call_quad12": launches,
             **{f"{k}_call_quad12": v["detect_launches_per_cpi"]
                for k, v in alt.items()},
+            "sharded_step": sharded_detect,
             **{f"sharded_{k}_step": v["detect_launches_per_step"]
                for k, v in sh_alt.items()},
             "multiprocess_step": mp["detect_launches"]},
@@ -2067,6 +2342,27 @@ def main() -> int:
         "library_device_ms": None,
         "device_ms": prof["detect_device_ms"],
         "launches_per_call": prof["detect_launches_per_call"],
+    }, {
+        # The same source's row-block mode: the row-sharded path's call.
+        "name": "detect_rows",
+        "route": "cuda",
+        "source": "blah2_tpu_torch/csrc/detect.cu",
+        "replaces": "blah2_tpu/ops/pallas_detect.py:78",
+        "launches": sharded_detect,
+        "launches_by_path": {
+            "sharded_step": sharded_detect,
+            **{f"sharded_{k}_step": v["detect_launches_per_step"]
+               for k, v in sh_alt.items()},
+            "multiprocess_step": mp["detect_launches"]},
+        "max_abs_err": rows_err,
+        "ms": min(sh["rows_ms"]),
+        "plain_ms": min(sh["rows_plain_ms"]),
+        "bound_ms": sh["rows_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "device_ms": sh["rows_device_ms"],
+        "device_ms_in_step": sh["detect_rows_device_ms_in_step"],
+        "launches_per_step": sh["detect_rows_launches_per_step"],
     }, {
         "name": "halo",
         "route": "cuda",

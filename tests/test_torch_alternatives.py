@@ -506,7 +506,8 @@ def test_sharded_alternative_collectives_match_jax(kind):
     c64, s = 8, abs(sp.clutter_delay_min)
     if kind == "eca-b":
         want = [s * c64] + [(sp.nb - 1) * c64] * 2
-        assert sum(op.kind == "psum" for op in ops) == 2  # fold, failures
+        # The fold, the failures, and (row-sharded) the detection's dB sum.
+        assert sum(op.kind == "psum" for op in ops) == 2 + sp._row_shard
     else:
         L, W = sp.nlms_L, sp.nlms_W
         want = [s * c64, (W + 1) * L * c64, W * L * c64]

@@ -351,7 +351,9 @@ def test_sharded_pipeline_across_cards(card):
         outs[name] = sp(*sp.shard_inputs(x, y))
         for i in range(n):
             torch.cuda.synchronize(i)
-        want = {"cards": 4 * n, "cards-ppermute": 0, "one": 4}[name]
+        # Row-sharded: the 4 clutter shifts and the fused detector's 2
+        # row halos, one launch a card each.
+        want = {"cards": 6 * n, "cards-ppermute": 0, "one": 6}[name]
         assert halo_permute.launches - launches == want
     a, b, c = outs["cards"], outs["cards-ppermute"], outs["one"]
     assert torch.equal(a.db_map, b.db_map)
@@ -361,6 +363,142 @@ def test_sharded_pipeline_across_cards(card):
     v = a.detections.valid[0]
     assert bool(torch.any((a.detections.delay[0][v] - 20).abs() < 1.0))
     assert halo_permute.error() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "c64"])
+@pytest.mark.parametrize("name", ["default-targets", "default-overflow",
+                                  "ragged", "wide"])
+def test_row_block_mode_matches_plain_on_card(card, name, kind):
+    """The kernel's row-block mode against detect_rows_plain and against
+    its own map mode: the map cut in four row blocks (the last with
+    phantom rows holding garbage), each with its halo rows from the map
+    and zeros past its edges, one launch for the four; db and keep are the
+    map mode's bits, the sums and maxima the map's rows'."""
+    from blah2_tpu_torch.ops.detect import detect_rows_plain
+
+    z, args = _cases()[name]
+    fd = FusedDetector(*args, device=card)
+    m = _input(torch.from_numpy(z).to(card), kind)
+    nr, nc = m.shape
+    g, t, wr, wc = fd.n_guard, fd.n_train, fd.win_rows, fd.win_cols
+    n = 4
+    r_len = -(-nr // n)
+    padded = torch.cat([m.new_zeros((wr, nc)), m,
+                        m.new_full((n * r_len - nr, nc), 7.0),
+                        m.new_zeros((wr, nc))])
+    blocks = [(padded[d * r_len:d * r_len + wr],
+               padded[wr + d * r_len:wr + (d + 1) * r_len],
+               padded[wr + (d + 1) * r_len:2 * wr + (d + 1) * r_len])
+              for d in range(n)]
+    first = [d * r_len for d in range(n)]
+    kw = (fd._scale, fd._cell_ok, g, t, wr, wc)
+    launches = tdetect.detect.launches
+    got = tdetect.detect.rows(blocks, first, nr, *kw)
+    torch.cuda.synchronize()
+    assert tdetect.detect.launches == launches + 1
+    want = detect_rows_plain(torch.stack([torch.cat(b) for b in blocks]),
+                             first, nr, *kw)
+    whole = tdetect.detect(m.contiguous(), *kw)
+    assert torch.equal(got.keep, want.keep)
+    assert torch.equal(got.keep.reshape(-1, nc)[:nr], whole.keep)
+    assert torch.equal(got.db.reshape(-1, nc)[:nr], whole.db)
+    assert bool(torch.isneginf(got.db.reshape(-1, nc)[nr:]).all())
+    assert int(got.keep.sum()) >= 1
+    torch.testing.assert_close(got.sums, want.sums, rtol=1e-6, atol=0)
+    assert torch.equal(got.maxes, want.maxes)
+    assert abs(float(got.sums.double().sum()) / (nr * nc)
+               - float(whole.noise)) <= 1e-4
+    again = tdetect.detect.rows(blocks, first, nr, *kw)
+    assert torch.equal(again.sums, got.sums)
+
+
+@pytest.mark.cuda
+def test_row_block_mode_over_launch_capacity_on_card(card):
+    """More row blocks than one launch takes (MAX_BLOCKS): the wrapper
+    launches in turn, each launch's blocks as the plain twin gives them."""
+    from blah2_tpu_torch.ops.detect import MAX_BLOCKS, detect_rows_plain
+
+    z, args = _cases()["ragged"]
+    fd = FusedDetector(*args, device=card)
+    m = _input(torch.from_numpy(z).to(card), "c64")
+    nr, nc = m.shape
+    wr = fd.win_rows
+    r_len = -(-nr // 3)
+    padded = torch.cat([m.new_zeros((wr, nc)), m,
+                        m.new_zeros((3 * r_len - nr + wr, nc))])
+    one = [(padded[d * r_len:d * r_len + wr],
+            padded[wr + d * r_len:wr + (d + 1) * r_len],
+            padded[wr + (d + 1) * r_len:2 * wr + (d + 1) * r_len])
+           for d in range(3)]
+    copies = MAX_BLOCKS // 3 + 2
+    blocks = one * copies
+    first = [d * r_len for d in range(3)] * copies
+    kw = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, wr, fd.win_cols)
+    launches = tdetect.detect.launches
+    got = tdetect.detect.rows(blocks, first, nr, *kw)
+    torch.cuda.synchronize()
+    assert len(blocks) > MAX_BLOCKS
+    assert tdetect.detect.launches == launches + 2
+    want = detect_rows_plain(torch.stack([torch.cat(b) for b in one]),
+                             first[:3], nr, *kw)
+    for k in range(copies):
+        assert torch.equal(got.keep[3 * k:3 * k + 3], want.keep)
+        assert torch.equal(got.maxes[3 * k:3 * k + 3], want.maxes)
+    torch.testing.assert_close(got.sums, want.sums.repeat(copies),
+                               rtol=1e-6, atol=0)
+    # Each launch keeps its own counters: a second call reads the same.
+    again = tdetect.detect.rows(blocks, first, nr, *kw)
+    assert torch.equal(again.sums, got.sums)
+    assert torch.equal(again.keep, got.keep)
+
+
+@pytest.mark.cuda
+def test_row_block_layouts_in_turn_on_card(card):
+    """The wrapper keeps each checked layout with its pointer tables: two
+    layouts in turn on one stream, and new tensors in a kept layout, give
+    the plain twin's results (the pointers refilled, the scratch zeroed
+    at each change of layout), and a part laid out otherwise is checked
+    again and refused."""
+    from blah2_tpu_torch.ops.detect import detect_rows_plain
+
+    z, args = _cases()["ragged"]
+    fd = FusedDetector(*args, device=card)
+    nr, nc = z.shape
+    wr = fd.win_rows
+    kw = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, wr, fd.win_cols)
+
+    def cut(m, n):
+        r_len = -(-nr // n)
+        padded = torch.cat([m.new_zeros((wr, nc)), m,
+                            m.new_zeros((n * r_len - nr + wr, nc))])
+        return ([(padded[d * r_len:d * r_len + wr].clone(),
+                  padded[wr + d * r_len:wr + (d + 1) * r_len],
+                  padded[wr + (d + 1) * r_len:2 * wr + (d + 1) * r_len]
+                  .clone()) for d in range(n)],
+                [d * r_len for d in range(n)])
+
+    rng = np.random.default_rng(5)
+    for k in range(3):
+        m = _input(torch.from_numpy(
+            z * (1.0 + 0.5 * k) + rng.standard_normal(z.shape)
+            .astype(np.complex64)).to(card), "c64")
+        for n in (4, 3):
+            blocks, first = cut(m, n)
+            got = tdetect.detect.rows(blocks, first, nr, *kw)
+            want = detect_rows_plain(
+                torch.stack([torch.cat(b) for b in blocks]), first, nr, *kw)
+            assert torch.equal(got.keep, want.keep)
+            assert torch.equal(got.maxes, want.maxes)
+            torch.testing.assert_close(got.sums, want.sums, rtol=1e-6,
+                                       atol=0)
+    blocks, first = cut(m, 4)
+    wide = torch.zeros((blocks[0][1].shape[0], 2 * nc), dtype=m.dtype,
+                       device=card)
+    wide[:, ::2] = blocks[0][1]
+    blocks[0] = (blocks[0][0], wide[:, ::2], blocks[0][2])
+    with pytest.raises(ValueError, match="contiguous rows"):
+        tdetect.detect.rows(blocks, first, nr, *kw)
 
 
 @pytest.mark.cuda
@@ -699,7 +837,7 @@ def test_sharded_step_across_processes_on_two_cards(card, tmp_path):
 
     assert [e["backend"] for e in every] == ["nccl", "nccl"]
     assert [e["launches"] for e in every] == \
-        [{"ppermute": 0, "pallas": 4}] * 2
+        [{"ppermute": 0, "pallas": 6}] * 2
     got = np.load(tmp_path / "step.npz")
     cfg, x, y = card_scene()
     mesh = make_radar_mesh(1, 2, devices=[torch.device("cuda", 0),

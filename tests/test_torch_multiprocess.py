@@ -6,7 +6,10 @@ global eight-rank mesh, on the 2 x 4 mesh (one cpi row in each process, no
 payload crosses) and the 1 x 8 mesh (one CPI's time axis across the
 process boundary: halos and the Doppler and spectrum psums cross), at
 complex64 and complex128, with both halo backends, on the scene of
-tests/multihost_worker.py:52-74. The parent holds their products against
+tests/multihost_worker.py:52-74; and the 1 x 8 mesh row-sharded
+(``1x8rows``: each rank detects its own Doppler rows, the dB-sum psum, the
+dB-max pmax and the all-gather of dB rows and masks cross, and at
+complex64 the fused detector's row halos). The parent holds their products against
 the one-process eight-rank port and against JAX's eight-device
 ``ShardedCpiPipeline``.
 
@@ -40,7 +43,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-MESHES = ((2, 4), (1, 8))
+#: (n_cpi, n_pulse, row_shard): the layouts' "auto" (2 x 4 row-sharded,
+#: 1 x 8 replicated), then 1 x 8 row-sharded.
+MESHES = ((2, 4, "auto"), (1, 8, "auto"), (1, 8, True))
 DTYPES = ("complex64", "complex128")
 BACKENDS = ("ppermute", "pallas")
 WORKER_SECONDS = 240
@@ -86,6 +91,19 @@ def products(out) -> dict:
     return {k: v.cpu().numpy() for k, v in got.items()}
 
 
+def case_name(n_cpi, n_pulse, rows, dt, backend) -> str:
+    forced = "rows" if rows is True else ""
+    return f"{n_cpi}x{n_pulse}{forced}-{dt}-{backend}"
+
+
+def parse_case(case: str):
+    """(n_cpi, n_pulse, row_shard, dtype) of a case name."""
+    mesh, dt, _ = case.split("-")
+    rows = True if mesh.endswith("rows") else "auto"
+    n_cpi, n_pulse = (int(v) for v in mesh.removesuffix("rows").split("x"))
+    return n_cpi, n_pulse, rows, dt
+
+
 def run_cases(mesh_of) -> dict:
     """Every case of the module on meshes ``mesh_of(n_cpi, n_pulse)``:
     {case name: products}, with each case's collective log."""
@@ -94,16 +112,18 @@ def run_cases(mesh_of) -> dict:
 
     cfg, xb, yb = scene_batch()
     results, logs = {}, {}
-    for n_cpi, n_pulse in MESHES:
+    for n_cpi, n_pulse, rows in MESHES:
         mesh = mesh_of(n_cpi, n_pulse)
         for dt in DTYPES:
             for backend in BACKENDS:
-                pipe = ShardedCpiPipeline(cfg, mesh, dtype=getattr(torch, dt),
-                                          halo_backend=backend)
+                pipe = ShardedCpiPipeline(
+                    cfg, mesh, dtype=getattr(torch, dt),
+                    halo_backend=backend, row_shard=rows,
+                    use_fused_detect=rows is True and dt == "complex64")
                 planes = pipe.shard_inputs(xb[:n_cpi], yb[:n_cpi])
                 with count_bytes(mesh) as ops:
                     out = pipe(*planes)
-                name = f"{n_cpi}x{n_pulse}-{dt}-{backend}"
+                name = case_name(n_cpi, n_pulse, rows, dt, backend)
                 results[name] = products(out)
                 logs[name] = [[op.kind, op.axis, list(op.shape),
                                str(op.dtype), op.bytes_per_rank]
@@ -356,13 +376,13 @@ def jax_products():
     cfg = config_from_dict(SCENE)
     _, xb, yb = scene_batch()
     out = {}
-    for n_cpi, n_pulse in MESHES:
+    for n_cpi, n_pulse, rows in MESHES:
         for dt in DTYPES:
             pipe = ShardedCpiPipeline(cfg, make_radar_mesh(n_cpi, n_pulse),
-                                      dtype=getattr(jnp, dt))
+                                      dtype=getattr(jnp, dt), row_shard=rows)
             res = pipe(*pipe.shard_inputs(xb[:n_cpi], yb[:n_cpi]))
             det = res.detections
-            out[n_cpi, n_pulse, dt] = {
+            out[n_cpi, n_pulse, rows, dt] = {
                 "db": np.asarray(res.db_map),
                 "noise": np.asarray(res.noise_power),
                 "ok": np.asarray(res.clutter_ok),
@@ -384,8 +404,8 @@ def det_sets(got: dict) -> list:
             zip(got["det_row"], got["det_col"], got["det_valid"])]
 
 
-CASES = [f"{c}x{p}-{dt}-{b}" for c, p in MESHES for dt in DTYPES
-         for b in BACKENDS]
+CASES = [case_name(c, p, rows, dt, b) for c, p, rows in MESHES
+         for dt in DTYPES for b in BACKENDS]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -395,7 +415,7 @@ def test_two_processes_match_one_process(case, workers, one_process):
     same order, so in practice the same bits), the same clutter flags and
     detection sets."""
     got, want = workers[0][0][case], one_process[0][case]
-    bar = ONE_PROCESS_DB[case.split("-")[1]]
+    bar = ONE_PROCESS_DB[parse_case(case)[3]]
     assert got["db"].shape == want["db"].shape
     np.testing.assert_allclose(got["db"], want["db"], rtol=0, atol=bar)
     np.testing.assert_allclose(got["noise"], want["noise"], rtol=0, atol=bar)
@@ -408,9 +428,8 @@ def test_two_processes_match_one_process(case, workers, one_process):
 def test_two_processes_match_jax(case, workers, jax_products):
     """The two-process port against JAX's eight-device pipeline: maps
     within JAX_DB and the same detection sets, both CPIs."""
-    mesh, dt, _ = case.split("-")
-    n_cpi, n_pulse = (int(v) for v in mesh.split("x"))
-    got, want = workers[0][0][case], jax_products[n_cpi, n_pulse, dt]
+    n_cpi, n_pulse, rows, dt = parse_case(case)
+    got, want = workers[0][0][case], jax_products[n_cpi, n_pulse, rows, dt]
     np.testing.assert_allclose(got["db"], want["db"], rtol=0,
                                atol=JAX_DB[dt])
     np.testing.assert_allclose(got["noise"], want["noise"], rtol=0,

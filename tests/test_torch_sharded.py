@@ -347,7 +347,9 @@ def test_collective_bytes_match_model(row_shard):
     """One step on a 2 x 4 mesh, two CPIs: three (nb−1) halos and one
     |delayMin| shift per rank, 2·nfft_seg complex64 of clutter-spectrum
     psum, the Doppler psum_scatter (or psum) and an n_spectrum fold psum,
-    all per local CPI; nothing else."""
+    all per local CPI; row-sharded, the detection's float32 dB-sum psum and
+    dB-max pmax and the all-gathers of the float32 dB rows and the one-byte
+    mask (no gather of the complex map); nothing else."""
     d = _tiny_scene()
     mesh = _mesh((2, 4))
     sp = ShardedCpiPipeline(config_from_dict(d), mesh, row_shard=row_shard)
@@ -355,7 +357,7 @@ def test_collective_bytes_match_model(row_shard):
     xp, yp = sp.shard_inputs(x, x)
     with coll.count_bytes(mesh) as ops:
         sp(xp, yp)
-    b_local, c64 = 2 // mesh.shape["cpi"], 8
+    b_local, c64, f32 = 2 // mesh.shape["cpi"], 8, 4
     h, s = sp.nb - 1, abs(sp.clutter_delay_min)
     n_p = mesh.shape["pulse"]
     nd, n_delay = sp.ambiguity.n_doppler_bins, sp.ambiguity.n_delay_bins
@@ -365,13 +367,24 @@ def test_collective_bytes_match_model(row_shard):
     doppler = b_local * nd * n_delay * c64
     want = [b_local * sp.nfft_seg * c64] * 2 + \
         [b_local * sp.spectrum.n_spectrum * c64] + \
-        ([] if row_shard else [doppler])
+        ([b_local * f32] if row_shard else [doppler])
     assert psums == sorted(want)
     scatter = [op.bytes_per_rank for op in ops if op.kind == "psum_scatter"]
     assert scatter == ([b_local * (sp.nd_rows_pad // n_p) * n_delay * c64]
                        if row_shard else [])
-    assert len(ops) == 8
-    # The same permutes and Doppler reduction as JAX's compiled program.
+    pmaxes = [op.bytes_per_rank for op in ops if op.kind == "pmax"]
+    assert pmaxes == ([b_local * f32] if row_shard else [])
+    gathers = sorted(op.bytes_per_rank for op in ops
+                     if op.kind == "all_gather")
+    cells = b_local * sp.nd_rows_pad * n_delay
+    assert gathers == (sorted([cells * f32, cells * 1]) if row_shard else [])
+    assert {op.dtype for op in ops if op.kind == "all_gather"} == \
+        ({torch.float32, torch.bool} if row_shard else set())
+    assert len(ops) == (12 if row_shard else 8)
+    # The same permutes and Doppler reduction as JAX's compiled program;
+    # row-sharded, its two scalar all-reduces (the dB sum and max) and its
+    # all-gathers of the f32 dB rows and the pred mask, and no all-gather
+    # of the complex map (its complex all-gather is the spectrum fold's).
     ref = JaxSharded(jax_config(d), jax_mesh(2, 4), row_shard=row_shard)
     jops = commstats.collect(ref._fn, *ref.shard_inputs(x, x))
     assert sorted(op.bytes_per_rank for op in jops
@@ -379,6 +392,17 @@ def test_collective_bytes_match_model(row_shard):
     if row_shard:
         assert [op.bytes_per_rank for op in jops
                 if op.kind == "reduce-scatter"] == scatter
+        scalars = sorted(op.bytes_per_rank for op in jops
+                         if op.kind == "all-reduce"
+                         and all(t.startswith("f32[") for t in op.shapes))
+        assert scalars == sorted([b_local * f32] + pmaxes)
+        assert sorted(op.bytes_per_rank for op in jops
+                      if op.kind == "all-gather"
+                      and op.shapes[0].startswith(("f32[", "pred["))) \
+            == gathers
+        assert [t for op in jops if op.kind == "all-gather"
+                for t in op.shapes if t.startswith("c64[")] == \
+            [f"c64[2,{sp.spectrum.n_spectrum}]"]
     # The pallas backend moves the same payloads as planes.
     sp.halo_backend = "pallas"
     with coll.count_bytes(mesh) as ops2:

@@ -17,7 +17,8 @@ of the process is synchronised, median, min and max over ``--steps`` steps
 after ``--warmup`` (in (c), every process's); in (a) also by CUDA events,
 as ``chip_smoke.py`` times it; from ``torch.profiler`` over five steps the
 device busy ms per step of each card, the idle share against the median
-step, the kernels per step and the halo kernel's device time per launch;
+step, the kernels per step, the halo kernel's device time per launch and
+the detect kernel's per card (row-sharded, every card detects its rows);
 and the halo kernel alone by CUDA events on every card (``halo_events``).
 In (c) each process is profiled in a window of its own while the others
 run the same steps unprofiled: a profiled process's host falls behind, and
@@ -113,19 +114,27 @@ def profile(step, cards, ready=None):
     trace = chip_smoke.trace_events(prof)
     busy: dict = {}
     kernels: dict = {}
-    halo = []
+    halo, detect = [], {}
     for ev in trace["kernel"] + trace["gpu_memcpy"] + trace["gpu_memset"]:
         dev = ev.get("args", {}).get("device", 0)
         busy[dev] = busy.get(dev, 0.0) + ev["dur"]
         kernels[dev] = kernels.get(dev, 0) + 1
         if "halo_permute" in ev["name"]:
             halo.append(ev["dur"])
+        if "detect_" in ev["name"]:
+            detect.setdefault(dev, []).append(ev["dur"])
     return {"busy_ms_per_step": {str(d): t / PROFILED_STEPS / 1e3
                                  for d, t in sorted(busy.items())},
             "kernels_per_step": {str(d): k / PROFILED_STEPS
                                  for d, k in sorted(kernels.items())},
             "halo_device_us": spread(halo) if halo else None,
-            "halo_launches_per_step": len(halo) / PROFILED_STEPS}
+            "halo_launches_per_step": len(halo) / PROFILED_STEPS,
+            # The detect kernel (map or row-block mode), per card.
+            "detect_device_us": {str(d): spread(t)
+                                 for d, t in sorted(detect.items())},
+            "detect_launches_per_step": {
+                str(d): len(t) / PROFILED_STEPS
+                for d, t in sorted(detect.items())}}
 
 
 def halo_events(mesh, cards):
