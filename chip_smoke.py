@@ -14,14 +14,18 @@ deferred fetch, staged samples), then the default config through the
 sharded pipeline on 1 x 4 and 2 x 2 meshes of logical ranks on the one
 card, times the paths with CUDA events and the profiler; then the
 alternative algorithms (ECA-B, NLMS, OS-CFAR) on the single-device path,
-ECA-B, NLMS and nSub 4 on the sharded path, and the runtime in mesh mode,
-and prints as its last line ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
-exits non-zero and prints no result. It imports nothing of the JAX package.
+ECA-B, NLMS and nSub 4 on the sharded path, the runtime in mesh mode and
+over two processes, then each measuring entry point of
+``blah2_tpu_torch/bench`` at cut counts, and prints as its last line
+``{"ok": true, "device": {...}}``. Every failed check raises, so the
+script exits non-zero and prints no result. It imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2210,6 +2214,66 @@ def phase_runtime_multiprocess(root, card, replay, mesh_maps):
     return line
 
 
+#: The measuring entry points (blah2_tpu_torch/bench) at cut counts.
+BENCH_ARGS = {
+    "pipeline": ["--groups", "2"],
+    "runtime": ["--measured-cpis", "6"],
+    "soak": ["--cpis", "10"],
+    "scaling": ["--virtual", "4", "--sizes", "1", "4"],
+    "compare": ["--reps", "1"],
+}
+
+
+def finite(value, where):
+    """Fail where a number in a bench's result is not finite."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            finite(v, f"{where}.{k}")
+    elif isinstance(value, list):
+        for i, v in enumerate(value):
+            finite(v, f"{where}[{i}]")
+    elif isinstance(value, float):
+        check(math.isfinite(value), f"{where} is {value}")
+
+
+def phase_bench():
+    """Each measuring entry point of the port on the card, through its
+    ``main(argv)`` as ``python -m blah2_tpu_torch.bench.<name>`` runs it, at
+    the default config and cut counts (BENCH_ARGS): each prints its JSON
+    line(s). Fails where a number is not finite, where the soak lists a
+    failure, or where the detect kernel did not launch in the pipeline and
+    runtime benches; returns each bench's detect and halo launches, the
+    counts set to 0 just before it."""
+    import importlib
+
+    from blah2_tpu_torch.ops.detect import detect
+    from blah2_tpu_torch.ops.halo import halo_permute
+
+    detect_launches, halo_launches, results = {}, {}, {}
+    t0 = time.perf_counter()
+    for name, argv in BENCH_ARGS.items():
+        main_of = importlib.import_module(
+            f"blah2_tpu_torch.bench.{name}").main
+        detect.launches = halo_permute.launches = 0
+        out = main_of(argv)
+        detect_launches[name] = detect.launches
+        halo_launches[name] = halo_permute.launches
+        finite(out, name)
+        results[name] = out
+    for name in ("pipeline", "runtime"):
+        check(detect_launches[name] > 0,
+              f"the {name} bench never launched the detect kernel")
+    d = results["pipeline"]["detail"]
+    check(d["kernels_per_cpi"] and d["card"],
+          f"the pipeline bench read no card: {d['kernels_per_cpi']}, "
+          f"{d['card']}")
+    check(not results["soak"]["detail"]["failures"],
+          f"soak failures {results['soak']['detail']['failures']}")
+    print(f"bench: {time.perf_counter() - t0:.1f} s; detect launches "
+          f"{detect_launches}, halo launches {halo_launches}")
+    return detect_launches, halo_launches
+
+
 def worker_main(argv) -> int:
     import argparse
 
@@ -2281,6 +2345,7 @@ def main() -> int:
             dev, ROOT, card, tmp)
         mp = phase_multiprocess(dev, ROOT, card)
         mp_rt = phase_runtime_multiprocess(ROOT, card, replay, mesh_maps)
+    bench_detect, bench_halo = phase_bench()
 
     kern_ms = min(timing["detect_ms"])
     plain_ms = min(timing["detect_plain_ms"])
@@ -2332,7 +2397,8 @@ def main() -> int:
             "sharded_step": sharded_detect,
             **{f"sharded_{k}_step": v["detect_launches_per_step"]
                for k, v in sh_alt.items()},
-            "multiprocess_step": mp["detect_launches"]},
+            "multiprocess_step": mp["detect_launches"],
+            **{f"bench_{k}": v for k, v in bench_detect.items()}},
         "max_abs_err": err,
         "ms": kern_ms,
         "plain_ms": plain_ms,
@@ -2375,7 +2441,8 @@ def main() -> int:
                for k, v in sh_alt.items()},
             "runtime_mesh": mesh_launches,
             "multiprocess_step": mp["halo_launches"],
-            "runtime_multiprocess": mp_rt["halo_launches"]},
+            "runtime_multiprocess": mp_rt["halo_launches"],
+            **{f"bench_{k}": v for k, v in bench_halo.items()}},
         "pairs_by_route": {"multiprocess_step": mp["pairs"],
                            "runtime_multiprocess": mp_rt["pairs"]},
         "max_abs_err": halo_err,

@@ -40,6 +40,8 @@ from blah2_tpu_torch.parallel.sharded import (ShardedCpiPipeline,
 from blah2_tpu_torch.runtime import cli, radar
 from blah2_tpu_torch.runtime.radar import RadarRuntime
 from blah2_tpu_torch.net.api import ApiServer
+from blah2_tpu_torch.bench import (common, compare, pipeline, runtime,
+                                   scaling, soak)
 pipe = CpiPipeline(Config(), device="cpu")
 RadarRuntime(Config(), device="cpu", staged_sample_every=0)
 pipeline_state_to_numpy(pipe)
