@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import socket
 import subprocess
 import sys
 import time
@@ -95,6 +96,21 @@ def device_detail(device: torch.device) -> dict:
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
     return {"device": name, "card": card_line(device)}
+
+
+def free_ports(n: int) -> List[int]:
+    """``n`` distinct localhost ports the system hands out free (each
+    bound to port 0, then released)."""
+    socks = []
+    try:
+        for _ in range(n):
+            sock = socket.socket()
+            sock.bind(("127.0.0.1", 0))
+            socks.append(sock)
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
 
 
 def emit(result: dict) -> dict:

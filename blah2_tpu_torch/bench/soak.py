@@ -45,12 +45,16 @@ WATCHDOG_MS = 60_000.0
 RSS_GROWTH = 0.10
 
 
-def rss_mb() -> float:
-    """This process's resident set size in MiB (``/proc/self/status``)."""
-    with open("/proc/self/status") as f:
-        for line in f:
-            if line.startswith("VmRSS"):
-                return float(line.split()[1]) / 1024.0
+def rss_mb(pid="self") -> float:
+    """Resident set size in MiB of process ``pid`` (default: this one),
+    from ``/proc/<pid>/status``; 0 once the process has gone."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return float(line.split()[1]) / 1024.0
+    except OSError:
+        pass
     return 0.0
 
 

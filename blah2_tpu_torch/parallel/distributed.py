@@ -184,13 +184,19 @@ def shutdown() -> None:
 
 # -- payloads across processes ------------------------------------------------
 
+def _home() -> torch.device:
+    """The card NCCL payloads travel on: this process's first. PyTorch's
+    NCCL backend takes one card a process, so a process with several cards
+    stages the payloads of its other cards through this one."""
+    return torch.device("cuda", _job.cards[0])
+
+
 def _wire(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the payload backend takes it: real, contiguous, and on the
-    host for gloo."""
+    host for gloo, on this process's first card for NCCL."""
     if t.is_complex():
         t = torch.view_as_real(t)
-    if _job.backend == "gloo":
-        t = t.cpu()
+    t = t.cpu() if _job.backend == "gloo" else t.to(_home())
     return t.contiguous()
 
 
@@ -203,7 +209,7 @@ def _unwire(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def _empty_wire(like: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     dtype = like.real.dtype if like.is_complex() else like.dtype
     shape = tuple(shape) + ((2,) if like.is_complex() else ())
-    dev = like.device if _job.backend == "nccl" else torch.device("cpu")
+    dev = _home() if _job.backend == "nccl" else torch.device("cpu")
     return torch.empty(shape, dtype=dtype, device=dev)
 
 

@@ -16,7 +16,11 @@ card, times the paths with CUDA events and the profiler; then the
 alternative algorithms (ECA-B, NLMS, OS-CFAR) on the single-device path,
 ECA-B, NLMS and nSub 4 on the sharded path, the runtime in mesh mode and
 over two processes, then each measuring entry point of
-``blah2_tpu_torch/bench`` at cut counts, and prints as its last line
+``blah2_tpu_torch/bench`` at cut counts, then the system as it is deployed:
+the 3-process topology (this process's radar sending over TCP into a
+standalone API process), the supervised restart soak, the dry run
+(``blah2_tpu_torch.entry.dryrun_multichip(4)``) and the scaling projection
+with its times measured, and prints as its last line
 ``{"ok": true, "device": {...}}``. Every failed check raises, so the
 script exits non-zero and prints no result. It imports nothing of the JAX
 package.
@@ -221,6 +225,31 @@ def row_block_check(fd, m, n_blocks, what):
     return max(d_db, per_cell), int(got.keep.sum())
 
 
+def detect_against_plain(m, fd, what):
+    """The detect kernel against detect_plain on map ``m`` (complex64 or
+    float32 power; a map or a stack) with ``fd``'s constants: one launch,
+    the same kept cells, dB map, noise and raw max within 1e-4 dB. Returns
+    (the largest difference, the kernel's result)."""
+    import torch
+
+    from blah2_tpu_torch.ops.detect import detect, detect_plain
+
+    args = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
+            fd.win_cols)
+    launches = detect.launches
+    got = detect(m, *args)
+    want = detect_plain(m, *args)
+    torch.cuda.synchronize()
+    check(detect.launches == launches + 1,
+          f"{what}: {detect.launches - launches} launches")
+    check(torch.equal(got.keep, want.keep), f"{what}: keep differs")
+    e = max(float((got.db - want.db).abs().max()),
+            float((got.noise - want.noise).abs().max()),
+            float((got.rawmax - want.rawmax).abs().max()))
+    check(e <= 1e-4, f"{what}: db/noise/rawmax differ by {e} dB")
+    return e, got
+
+
 def phase_kernel_vs_plain(dev):
     """The kernel against detect_plain on the card, on the complex64 map
     and on its float32 power: random 301 x 411 maps with targets, the tie
@@ -233,7 +262,7 @@ def phase_kernel_vs_plain(dev):
 
     from blah2_tpu_torch.config import Config
     from blah2_tpu_torch.dsp.ambiguity import AmbiguityProcessor
-    from blah2_tpu_torch.ops.detect import FusedDetector, detect, detect_plain
+    from blah2_tpu_torch.ops.detect import FusedDetector, detect
 
     cfg = Config()
     amb = AmbiguityProcessor(-10, 400, -200, 200, cfg.capture.fs,
@@ -276,23 +305,9 @@ def phase_kernel_vs_plain(dev):
     err = 0.0
     for name, z, fd in cases:
         zc = torch.from_numpy(z).to(dev)
-        args = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
-                fd.win_cols)
         for kind, m in (("complex64", zc), ("float32",
                                             power_map(zc).contiguous())):
-            launches = detect.launches
-            got = detect(m, *args)
-            want = detect_plain(m, *args)
-            torch.cuda.synchronize()
-            check(detect.launches == launches + 1,
-                  f"{name} {kind}: {detect.launches - launches} launches")
-            check(torch.equal(got.keep, want.keep),
-                  f"{name} {kind}: keep differs")
-            e = max(float((got.db - want.db).abs().max()),
-                    abs(float(got.noise - want.noise)),
-                    abs(float(got.rawmax - want.rawmax)))
-            check(e <= 1e-4, f"{name} {kind}: db/noise/rawmax differ by {e} "
-                  f"dB")
+            e, got = detect_against_plain(m, fd, f"{name} {kind}")
             err = max(err, e)
         n_keep = int(got.keep.sum())
         _, _, _, det = fd(zc)
@@ -313,14 +328,7 @@ def phase_kernel_vs_plain(dev):
             loose.win_rows, loose.win_cols)
     for kind, m in (("complex64", zs),
                     ("float32", power_map(zs).contiguous())):
-        got = detect(m, *args)
-        want = detect_plain(m, *args)
-        torch.cuda.synchronize()
-        check(torch.equal(got.keep, want.keep), f"stack {kind}: keep differs")
-        e = max(float((got.db - want.db).abs().max()),
-                float((got.noise - want.noise).abs().max()),
-                float((got.rawmax - want.rawmax).abs().max()))
-        check(e <= 1e-4, f"stack {kind}: db/noise/rawmax differ by {e} dB")
+        e, got = detect_against_plain(m, loose, f"stack {kind}")
         err = max(err, e)
         for i in range(2):
             one = detect(m[i].contiguous(), *args)
@@ -681,8 +689,11 @@ def phase_profile(pipe, packed, cpi_ms):
     return prof_out
 
 
-HALO_MESHES = ((1, 2), (1, 4), (1, 8), (2, 4))
+HALO_MESHES = ((1, 2), (1, 4), (1, 8), (2, 2), (2, 4))
 HALO_PAYLOADS = ((409, 2), (10, 2), (1, 2))
+#: (batch, count) of the masked form's slices: the 1 x 4 step's halos, and
+#: the dry run's on its 2 x 2 mesh (24 and 5 lags, complex64).
+HALO_MASKED = ((1, 409), (2, 409), (2, 10), (1, 24), (1, 5))
 
 
 def one_card_mesh(dev, shape):
@@ -728,7 +739,7 @@ def phase_halo_vs_plain(dev):
                     err = torch.maximum(err, (g - w).abs().max())
                 cases += 1
             for dtype in (torch.float32, torch.complex64, torch.complex128):
-                for batch, count in ((1, 409), (2, 409), (2, 10)):
+                for batch, count in HALO_MASKED:
                     blocks = [torch.randn((batch, 1000), dtype=dtype,
                                           device=dev)
                               for _ in range(mesh.size)]
@@ -2274,9 +2285,305 @@ def phase_bench():
     return detect_launches, halo_launches
 
 
+#: The deployed system at cut counts: the 3-process topology (CPIs after
+#: its warm-up ones), the supervised restart soak (two cycles: one restart
+#: gap), the projection.
+TOPOLOGY_WARM_CPIS = 3
+TOPOLOGY_CPIS = 5
+SOAK_CYCLES = 2
+SOAK_CPIS_PER_CYCLE = 2
+PROJECTION_ARGS = ["--measure", "--n-rep", "2"]
+
+
+def phase_topology(dev, card):
+    """The 3-process topology on the card: this process's radar runtime
+    (the supervised soak's config document: the default config, the
+    tracker on, a looped replay of bench.runtime's recording; no staged
+    samples) sends the six products over TCP into a standalone ``python -m
+    blah2_tpu_torch.net.api`` process on free ports. Every product the
+    radar sent last (its last CPI's, flushed by the deferred fetch before
+    ``run`` returns) is what the API serves, the REST surface answers
+    (``net/topology.py``'s checks, as deploy/smoke_3proc_torch.sh runs
+    them), and the detect kernel launched
+    once a CPI. Returns the launches and the ``cpi`` and ``latency``
+    statistics of the CPIs after the warm-up."""
+    import yaml
+
+    from blah2_tpu_torch.bench.common import (at, default_config, free_ports,
+                                              record_scene)
+    from blah2_tpu_torch.bench.runtime import STAGE_KEYS
+    from blah2_tpu_torch.bench.soak_supervised import config_doc, last_stamp
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.net import topology
+    from blah2_tpu_torch.ops.detect import detect
+    from blah2_tpu_torch.runtime.radar import RadarRuntime
+
+    t0 = time.perf_counter()
+    n = TOPOLOGY_WARM_CPIS + TOPOLOGY_CPIS
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = default_config()
+        ports = free_ports(8)
+        path = os.path.join(tmp, "topology.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(config_doc(cfg, record_scene(cfg, tmp), ports), f)
+        api = subprocess.Popen(
+            [sys.executable, "-m", "blah2_tpu_torch.net.api", "-c", path],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.STDOUT)
+
+        def get(p):
+            return topology.get(ports[0], p)
+
+        try:
+            topology.wait_for_ports(ports[:7], lambda: api.poll() is None,
+                                    120)
+            rt = RadarRuntime(load_config(path), api_server=None,
+                              use_tcp_egress=True, staged_sample_every=0,
+                              device=dev)
+            sent, timings = {}, []
+            orig = rt._emit
+
+            def emit(product, payload, parsed=None):
+                sent[product] = payload
+                if product == "timing":
+                    timings.append(json.loads(payload))
+                return orig(product, payload, parsed=parsed)
+
+            rt._emit = emit
+            rt.start_capture()
+            # The main path: counts at 0 just before, read just after.
+            detect.launches = 0
+            wall = run_bounded(rt, n, 300)
+            launches = detect.launches
+            deadline = time.monotonic() + 10
+            while get("/api/timing").decode() != sent["timing"]:
+                check(time.monotonic() < deadline,
+                      "the last CPI's timing product never reached the API")
+                time.sleep(0.05)
+            served = {p: get(f"/api/{'tracker' if p == 'track' else p}")
+                      .decode() for p in sent}
+            rest = topology.rest_checks(ports[0], n)
+            fs = json.loads(get("/api/config"))["capture"]["fs"]
+        finally:
+            api.terminate()
+            try:
+                api.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                api.kill()
+                api.wait()
+    check(set(sent) == {"map", "detection", "track", "timestamp", "timing",
+                        "iqdata"}, f"products sent {sorted(sent)}")
+    for p, payload in sent.items():
+        if p == "timestamp":  # its listener joins stamps sent close together
+            check(last_stamp(served[p]) == int(payload),
+                  f"the API serves timestamp {served[p]!r}, sent {payload}")
+        else:
+            check(served[p] == payload, f"the API's {p} is not the last sent")
+    check(json.loads(sent["timing"])["nCpi"] == n,
+          f"the last timing product is CPI {json.loads(sent['timing'])}")
+    check(all(rest.values()), f"REST checks {rest}")
+    check(fs == cfg.capture.fs, f"/api/config fs {fs}")
+    check(launches == n, f"detect launches {launches} in {n} CPIs")
+    steady = timings[TOPOLOGY_WARM_CPIS:]
+    cpi = sorted(d["cpi"] for d in steady)
+    line = {"cpis": len(steady), "cpi_ms_p25": at(cpi, 0.25),
+            "cpi_ms_median": at(cpi, 0.5), "cpi_ms_max": cpi[-1],
+            "latency_ms_median": at(sorted(d["latency"] for d in steady),
+                                    0.5),
+            "stage_means_ms": {k: statistics.mean(d.get(k, 0.0)
+                                                  for d in steady)
+                               for k in STAGE_KEYS},
+            "detect_launches": launches, "rest": rest, "run_wall_s": wall,
+            "wall_s": time.perf_counter() - t0, "card": card}
+    print("topology " + json.dumps(line))
+    return line
+
+
+def worker_soak(argv) -> int:
+    """One radar worker of phase_supervised_soak: the CLI's entry point on
+    its arguments, its detect launches written to ``--out``."""
+    import argparse
+
+    from blah2_tpu_torch.ops.detect import detect
+    from blah2_tpu_torch.runtime import cli
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", required=True)
+    args, rest = ap.parse_known_args(argv)
+    # The main path: counts at 0 just before, read just after.
+    detect.launches = 0
+    rc = cli.main(rest[1:] if rest[:1] == ["--"] else rest)
+    with open(os.path.join(args.out, f"soak_{os.getpid()}.json"), "w") as f:
+        json.dump({"detect": detect.launches}, f)
+    return rc
+
+
+def phase_supervised_soak(card):
+    """The supervised restart soak on the card at the default config
+    (``python -m blah2_tpu_torch.bench.soak_supervised``, SOAK_CYCLES
+    cycles of SOAK_CPIS_PER_CYCLE CPIs): one API process, radar workers
+    relaunched in turn, each worker this script's ``--worker soak`` around
+    the CLI's entry point so that its detect launches are counted. No
+    failure, every restart gap under the watchdog's 60 s, the kernel build
+    and the first product timed apart, each worker's detect kernel
+    launched once a CPI."""
+    from blah2_tpu_torch.bench import soak_supervised
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = soak_supervised.main(
+            ["--cycles", str(SOAK_CYCLES), "--cpis-per-cycle",
+             str(SOAK_CPIS_PER_CYCLE)],
+            launcher=[sys.executable, os.path.abspath(__file__), "--worker",
+                      "soak", "--out", tmp, "--"])
+        workers = []
+        for name in sorted(os.listdir(tmp)):
+            if name.startswith("soak_"):
+                with open(os.path.join(tmp, name)) as f:
+                    workers.append(json.load(f)["detect"])
+    d = out["detail"]
+    finite(out, "supervised_soak")
+    check(not d["failures"], f"supervised soak failures {d['failures']}")
+    check(len(d["inter_restart_gaps_s"]) == SOAK_CYCLES - 1 and
+          all(g < 60.0 for g in d["inter_restart_gaps_s"]),
+          f"restart gaps {d['inter_restart_gaps_s']}")
+    check(d["kernel_build_s"] is not None and d["first_product_s"]
+          is not None and d["card"], "build, first product or card missing")
+    check(workers == [SOAK_CPIS_PER_CYCLE] * SOAK_CYCLES,
+          f"detect launches by worker {workers}")
+    print(f"supervised_soak: {time.perf_counter() - t0:.1f} s; detect "
+          f"launches by worker {workers}")
+    return {"detect_launches": workers, "result": out}
+
+
+def phase_dryrun(card, visible):
+    """``blah2_tpu_torch.entry.dryrun_multichip(4)``: one step of each cell
+    of ``__graft_entry__.py``'s matrix on four logical ranks of the card,
+    the halo kernel launched in the ``pallas`` cell and in no other, and
+    that cell's map the bits of its twin's (the same config, batch and
+    2 x 2 mesh with the halos made by torch ops: the kernel against its
+    plain twin at the shapes this path gives it); then,
+    where the machine has two or more cards (``visible``: the
+    CUDA_VISIBLE_DEVICES this script was started with), the same over
+    every card in a process that sees them."""
+    import torch
+
+    from blah2_tpu_torch import entry
+    from blah2_tpu_torch.ops.detect import detect
+    from blah2_tpu_torch.ops.halo import halo_permute
+
+    t0 = time.perf_counter()
+    # The main path: counts at 0 just before, read just after.
+    halo_permute.launches = detect.launches = 0
+    cells = entry.dryrun_multichip(4)
+    halo, det = halo_permute.launches, detect.launches
+    by_cell = [c["launches"]["halo"] for c in cells]
+    check(len(cells) == 11, f"{len(cells)} cells")
+    check(all((n > 0) == (c["halo"] == "pallas")
+              for n, c in zip(by_cell, cells)),
+          f"halo launches by cell {by_cell}")
+    check(halo == sum(by_cell), f"halo launches {halo} against {by_cell}")
+    pallas = next(c for c in cells if c["halo"] == "pallas")
+    twin = next(c for c in cells if c["halo"] == "ppermute" and all(
+        c[k] == pallas[k] for k in ("mesh", "filter", "row_shard", "fused",
+                                    "extra")))
+    check(torch.equal(pallas["db_map"], twin["db_map"]),
+          "the halo kernel's map differs from the torch-ops halo's")
+    cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                           text=True, timeout=60).stdout.count("GPU ")
+    if visible is not None:
+        cards = min(cards, len([v for v in visible.split(",") if v]))
+    over_cards = None
+    if cards >= 2:
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        env.pop("CUDA_VISIBLE_DEVICES")
+        if visible is not None:
+            env["CUDA_VISIBLE_DEVICES"] = visible
+        proc = subprocess.run(
+            [sys.executable, "-m", "blah2_tpu_torch.entry", "dryrun", "4"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0 and "11 cells" in proc.stdout,
+              f"dryrun over {cards} cards exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        over_cards = cards
+    else:
+        print("note: one card: the dry run over several cards is not run")
+    line = {"cells": len(cells), "halo_launches": halo,
+            "halo_launches_by_cell": by_cell, "detect_launches": det,
+            "halo_cell_map_equals_twin": True,
+            "bytes_per_rank_by_cell": [
+                sum(v["bytes_per_rank"] for v in c["comm"].values())
+                for c in cells],
+            "over_cards": over_cards, "wall_s": time.perf_counter() - t0,
+            "card": card}
+    print("dryrun " + json.dumps(line))
+    return line
+
+
+def phase_projection(dev, card):
+    """``python -m blah2_tpu_torch.bench.projection --measure`` at the
+    default config, a low repetition count: t_rank and t_fix measured on
+    the card, every cell's step finite and positive, the 1 x 4 projection
+    set beside the measured four-card layout (c); the detect kernel
+    launched by the per-rank pipelines. Then the kernel against
+    detect_plain on each per-rank pipeline's map (tCpi/P: 301 down to 19
+    Doppler rows by 411 delays), as made from the projection's inputs and
+    with targets planted in it."""
+    import torch
+
+    from blah2_tpu_torch.bench import projection
+    from blah2_tpu_torch.bench.common import DEFAULT_CPI, DEFAULT_FS
+    from blah2_tpu_torch.ops.detect import detect
+
+    t0 = time.perf_counter()
+    # The main path: counts at 0 just before, read just after.
+    detect.launches = 0
+    out = projection.main(PROJECTION_ARGS)
+    launches = detect.launches
+    finite(out, "projection")
+    check(out["calibration"]["mode"] == "measured", "t_rank not measured")
+    check(all(r["t_step_ms"] > 0 for r in out["cells"]), "a step <= 0")
+    check(launches > 0, "the projection never launched the detect kernel")
+    err, shapes = 0.0, []
+    runs = projection.rank_runs(DEFAULT_FS, DEFAULT_CPI, projection.P_VALUES,
+                                dev)
+    for p, (pipe, x, y) in runs.items():
+        fd = pipe.fused_detector
+        check(fd is not None, f"P={p}: no fused detector")
+        z, _ = pipe.cross_map(pipe._complex(x), pipe._complex(y))
+        nr, nc = z.shape
+        planted = z.clone()
+        level = 30.0 * float(z.abs().pow(2).mean().sqrt())
+        for r, c in ((nr // 2, nc // 2), (nr // 4, 30), (nr - 2, nc - 3),
+                     (nr // 2 + 1, nc // 2 + 1)):
+            planted[r, c] += level
+        kept = []
+        for name, m in (("as made", z), ("targets", planted)):
+            e, got = detect_against_plain(m, fd, f"projection P={p} {name}")
+            err = max(err, e)
+            kept.append(int(got.keep.sum()))
+        check(kept[1] > 0, f"projection P={p}: no planted target kept")
+        shapes.append((p, nr, nc, *kept))
+    del runs
+    torch.cuda.empty_cache()
+    cross = out["cross_check"]
+    print(f"projection: {time.perf_counter() - t0:.1f} s; 1 x 4 step "
+          f"{cross['projected_1x4_step_ms']:.3f} ms projected against "
+          f"{min(cross['measured_4card_layout_c_ms'])}-"
+          f"{max(cross['measured_4card_layout_c_ms'])} ms measured "
+          f"(layout c); detect launches {launches}; kernel against plain on "
+          f"the per-rank maps (P, rows, cols, kept as made, kept with targets) "
+          f"{shapes}: max_abs_err_db "
+          f"{err:.3g}")
+    return {"detect_launches": launches, "max_abs_err": err, "result": out}
+
+
 def worker_main(argv) -> int:
     import argparse
 
+    if argv[:2] == ["--worker", "soak"]:
+        return worker_soak(argv[2:])
     ap = argparse.ArgumentParser()
     ap.add_argument("--worker", choices=("step", "cli"), required=True)
     ap.add_argument("--coordinator", required=True)
@@ -2346,6 +2653,10 @@ def main() -> int:
         mp = phase_multiprocess(dev, ROOT, card)
         mp_rt = phase_runtime_multiprocess(ROOT, card, replay, mesh_maps)
     bench_detect, bench_halo = phase_bench()
+    topo = phase_topology(dev, card)
+    sup = phase_supervised_soak(card)
+    dry = phase_dryrun(card, visible)
+    proj = phase_projection(dev, card)
 
     kern_ms = min(timing["detect_ms"])
     plain_ms = min(timing["detect_plain_ms"])
@@ -2383,6 +2694,15 @@ def main() -> int:
     print(f"runtime mesh 1 x 4 over {MP_PROCESSES} processes on {card}: "
           f"{mp_rt['cpi_ms_median']} ms cpi, {mp_rt['latency_ms_median']} "
           f"ms latency (medians of {mp_rt['cpis']})")
+    print(f"3-process topology on {card}: {topo['cpi_ms_median']:.3f} ms "
+          f"cpi median, p25 {topo['cpi_ms_p25']:.3f} ms, latency "
+          f"{topo['latency_ms_median']:.3f} ms over {topo['cpis']} CPIs")
+    sd = sup["result"]["detail"]
+    print(f"supervised soak on {card}: restart gaps "
+          f"{sd['inter_restart_gaps_s']} s, first product "
+          f"{sd['first_product_s_per_cycle']} s, kernel build "
+          f"{sd['kernel_build_s']:.3f} s, RSS max "
+          f"{sd['rss_mb_max_observed']:.1f} MB")
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "detect",
@@ -2398,8 +2718,12 @@ def main() -> int:
             **{f"sharded_{k}_step": v["detect_launches_per_step"]
                for k, v in sh_alt.items()},
             "multiprocess_step": mp["detect_launches"],
-            **{f"bench_{k}": v for k, v in bench_detect.items()}},
-        "max_abs_err": err,
+            **{f"bench_{k}": v for k, v in bench_detect.items()},
+            "topology": topo["detect_launches"],
+            "supervised_soak": sup["detect_launches"],
+            "dryrun": dry["detect_launches"],
+            "projection": proj["detect_launches"]},
+        "max_abs_err": max(err, proj["max_abs_err"]),
         "ms": kern_ms,
         "plain_ms": plain_ms,
         "bound_ms": timing["bound_ms"],
@@ -2442,7 +2766,9 @@ def main() -> int:
             "runtime_mesh": mesh_launches,
             "multiprocess_step": mp["halo_launches"],
             "runtime_multiprocess": mp_rt["halo_launches"],
-            **{f"bench_{k}": v for k, v in bench_halo.items()}},
+            **{f"bench_{k}": v for k, v in bench_halo.items()},
+            "dryrun": dry["halo_launches"],
+            "dryrun_by_cell": dry["halo_launches_by_cell"]},
         "pairs_by_route": {"multiprocess_step": mp["pairs"],
                            "runtime_multiprocess": mp_rt["pairs"]},
         "max_abs_err": halo_err,

@@ -849,3 +849,17 @@ def test_sharded_step_across_processes_on_two_cards(card, tmp_path):
         for k, v in want.items():
             np.testing.assert_array_equal(got[f"{backend}/{k}"], v,
                                           err_msg=f"{backend} {k}")
+
+
+@pytest.mark.cuda
+def test_dryrun_across_processes_with_two_cards_each(card):
+    """``python -m blah2_tpu_torch.entry dryrun2proc 2`` on four cards: two
+    processes with two cards each (NCCL, the payloads of a process's second
+    card staged through its first); process 0's maps on the 2 x 2 and 1 x 4
+    meshes are the bits of one process on the same four cards."""
+    from blah2_tpu_torch import entry
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    assert entry.dryrun_multihost(2, 2, seconds=240) == \
+        {"2x2": 0.0, "1x4": 0.0}

@@ -22,7 +22,8 @@ PORT_FILES = sorted(
     glob.glob(os.path.join(REPO, "blah2_tpu_torch", "**", "*.py"),
               recursive=True)
     + glob.glob(os.path.join(REPO, "blah2_tpu_torch", "csrc", "*"))
-    + [os.path.join(REPO, "chip_smoke.py")])
+    + [os.path.join(REPO, "chip_smoke.py"),
+       os.path.join(REPO, "deploy", "smoke_3proc_torch.sh")])
 
 _PROBE = r"""
 import sys
@@ -40,8 +41,9 @@ from blah2_tpu_torch.parallel.sharded import (ShardedCpiPipeline,
 from blah2_tpu_torch.runtime import cli, radar
 from blah2_tpu_torch.runtime.radar import RadarRuntime
 from blah2_tpu_torch.net.api import ApiServer
-from blah2_tpu_torch.bench import (common, compare, pipeline, runtime,
-                                   scaling, soak)
+from blah2_tpu_torch.bench import (common, compare, pipeline, projection,
+                                   runtime, scaling, soak, soak_supervised)
+from blah2_tpu_torch import entry
 pipe = CpiPipeline(Config(), device="cpu")
 RadarRuntime(Config(), device="cpu", staged_sample_every=0)
 pipeline_state_to_numpy(pipe)
