@@ -495,17 +495,35 @@ detect_blocks(const BlockTable<In> table, int kept,
 
 int tiles(int n, int tile) { return (n + tile - 1) / tile; }
 
+// The dynamic shared memory a kernel may take beyond 48 KB is a function
+// attribute, set per card. It is set on the first launch that needs more
+// than the card allows the kernel so far and never again for that size, so
+// a launch inside a CUDA graph's stream capture (after a warm-up launch of
+// the same size) makes no runtime call but the launch itself.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, int smem, int device,
+                       int (&allowed)[kMaxDevices]) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  if (device >= 0 && device < kMaxDevices && smem <= allowed[device])
+    return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && device >= 0 && device < kMaxDevices)
+    allowed[device] = smem;
+  return e;
+}
+
 template <typename In>
 cudaError_t launch(const void* in, const void* scale, const void* cell_ok,
                    void* db, void* keep, void* scratch, void* noise,
                    void* rawmax, int batch, int nr, int nc, int n_guard,
                    int n_train, int win_rows, int win_cols, int smem,
-                   cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        detect_tile<In>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
+                   int device, cudaStream_t stream) {
+  static int allowed[kMaxDevices] = {};
+  cudaError_t e = allow_smem(detect_tile<In>, smem, device, allowed);
+  if (e != cudaSuccess) return e;
   const dim3 grid(tiles(nc, kTileCols), tiles(nr, kTileRows), batch);
   const int n_tiles = grid.x * grid.y;
   unsigned int* counters = static_cast<unsigned int*>(scratch);
@@ -528,13 +546,10 @@ cudaError_t launch_blocks(int n_blocks, const void* const* parts,
                           void* scratch, void* sums, void* maxes, int kept,
                           int nr, int nc, int n_guard, int n_train,
                           int win_rows, int win_cols, int smem,
-                          cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        detect_blocks<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return e;
-  }
+                          int device, cudaStream_t stream) {
+  static int allowed[kMaxDevices] = {};
+  cudaError_t e = allow_smem(detect_blocks<In>, smem, device, allowed);
+  if (e != cudaSuccess) return e;
   BlockTable<In> table;
   for (int b = 0; b < n_blocks; ++b) {
     table.above[b] = static_cast<const In*>(parts[b]);
@@ -618,10 +633,10 @@ extern "C" int detect_launch(const void* in, int complex_input,
     return complex_input
                ? launch<float2>(in, scale, cell_ok, db, keep, scratch, noise,
                                 rawmax, batch, nr, nc, n_guard, n_train,
-                                win_rows, win_cols, smem, s)
+                                win_rows, win_cols, smem, device, s)
                : launch<float>(in, scale, cell_ok, db, keep, scratch, noise,
                                rawmax, batch, nr, nc, n_guard, n_train,
-                               win_rows, win_cols, smem, s);
+                               win_rows, win_cols, smem, device, s);
   });
 }
 
@@ -652,10 +667,10 @@ extern "C" int detect_launch_blocks(
                ? launch_blocks<float2>(n_blocks, parts, first_rows, scale,
                                        cell_ok, db, keep, scratch, sums,
                                        maxes, kept, nr, nc, n_guard, n_train,
-                                       win_rows, win_cols, smem, s)
+                                       win_rows, win_cols, smem, device, s)
                : launch_blocks<float>(n_blocks, parts, first_rows, scale,
                                       cell_ok, db, keep, scratch, sums, maxes,
                                       kept, nr, nc, n_guard, n_train,
-                                      win_rows, win_cols, smem, s);
+                                      win_rows, win_cols, smem, device, s);
   });
 }

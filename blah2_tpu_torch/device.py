@@ -45,6 +45,16 @@ def current_stream_handle(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+def tree_map(fn, obj):
+    """``fn`` over every tensor of a (nested) NamedTuple of tensors and
+    Nones, keeping its structure."""
+    if obj is None:
+        return None
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(tree_map(fn, v) for v in obj))
+    return fn(obj)
+
+
 def real_dtype(dtype: torch.dtype) -> torch.dtype:
     """Real component dtype of a complex working dtype."""
     try:

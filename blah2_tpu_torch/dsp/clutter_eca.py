@@ -12,11 +12,11 @@ cross-boundary history drawn from the neighbouring segments (``x = 0``
 outside the CPI). The Gram matrix comes from batched FFT lag correlations
 and two small batched edge-correction matmuls,
 ``G = Toeplitz(r) + P^H·H − Q^H·T``, so it costs O(n log n); all B solves
-are one batched Cholesky. ``cholesky_ex`` reports a failed factor in
-``info`` with no host sync, and a segment is good where ``info == 0`` and
-its weights are finite (a factor that failed can still give finite,
-wrong weights). The JAX module's (B, n_ext) gather-free build becomes
-slices and pads here.
+are one batched Cholesky and two batched triangular solves. ``cholesky_ex``
+reports a failed factor in ``info`` with no host sync, and a segment is good
+where ``info == 0`` and its weights are finite (a factor that failed can
+still give finite, wrong weights). The JAX module's (B, n_ext) gather-free
+build becomes slices and pads here.
 
 ``NlmsClutterFilter`` is an overlap-save frequency-domain block NLMS
 (multidelay FDAF). JAX runs its per-block recursion as one ``lax.scan``
@@ -60,6 +60,26 @@ def edge_mask(nb: int, device) -> torch.Tensor:
     return idx[:, None] < idx[None, :]
 
 
+def cho_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``A⁻¹·b`` from the lower Cholesky factor ``chol`` of a stack of
+    matrices ``A`` (..., n, n), ``b`` (..., n, k): two triangular solves,
+    as JAX's ``cho_solve``, in complex128 whatever the inputs' dtype.
+
+    ``torch.cholesky_solve`` on a batch takes MAGMA's batched solve on a
+    card, which allocates device memory on every call, and a CUDA graph's
+    capture forbids that. cuBLAS's triangular solves capture, but in
+    complex64 they left ECA-B's complex64 map further from its complex128
+    map than MAGMA's solve had, past ``chip_smoke.py``'s limit for the
+    cells away from clutter; widened to complex128 they come under it, for
+    more device time than the complex64 solves (PERF.md, Findings)."""
+    w = torch.linalg.solve_triangular(
+        chol.mH.to(torch.complex128),
+        torch.linalg.solve_triangular(chol.to(torch.complex128),
+                                      b.to(torch.complex128), upper=False),
+        upper=True)
+    return w.to(b.dtype)
+
+
 def ecab_residual(ext: torch.Tensor, seg: torch.Tensor, yb: torch.Tensor,
                   nb: int, nfft: int, diag_load: float, mask: torch.Tensor):
     """ECA-B on a stack of segments: ``ext`` (..., S, L + 2(nb−1)) the
@@ -94,7 +114,7 @@ def ecab_residual(ext: torch.Tensor, seg: torch.Tensor, yb: torch.Tensor,
                                               device=ext.device)
 
     chol, info = torch.linalg.cholesky_ex(G)
-    w = torch.cholesky_solve(b[..., None], chol)[..., 0]
+    w = cho_solve(chol, b[..., None])[..., 0]
     ok = (info == 0) & torch.all(torch.isfinite(w), dim=-1)
     w = torch.where(ok[..., None], w, zero)
 

@@ -11,6 +11,13 @@ fixed-capacity detections) as tensors there. ``call_staged`` runs the same
 CPI as four stages, each waited for, so that the runtime can time them
 under the reference's stage names.
 
+On a card each entry (``__call__``, ``call_quad``, ``call_quad12``,
+``call_chunks``) is captured as a CUDA graph the first time it meets a new
+input layout (``dsp/graph.py``): the counterpart of the JAX package's
+per-layout ``jax.jit`` programs and per-chunk-count cache
+(``blah2_tpu/dsp/pipeline.py:205-226,339-361``). ``graph=False`` keeps the
+eager path; ``call_staged`` is always eager.
+
 The tracker stays on the host, as in the JAX package.
 """
 
@@ -28,6 +35,7 @@ from blah2_tpu_torch.dsp.ambiguity import AmbiguityProcessor, map_metrics
 from blah2_tpu_torch.dsp.centroid import CentroidFilter
 from blah2_tpu_torch.dsp.cfar import CfarDetections, CfarDetector, make_cfar
 from blah2_tpu_torch.dsp.clutter_eca import make_clutter_filter
+from blah2_tpu_torch.dsp.graph import StaticCall, as_tensor
 from blah2_tpu_torch.dsp.interpolate import PeakInterpolator
 from blah2_tpu_torch.dsp.spectrum import SpectrumAnalyser
 from blah2_tpu_torch.ops.detect import FusedDetector
@@ -69,6 +77,17 @@ class CpiPipeline(nn.Module):
     detector runs the kernel's plain twin. The fused detector computes
     CA-CFAR, so a config with ``cfar: os`` runs the unfused chain whatever
     ``fused_detect`` says.
+
+    ``graph``: "auto" captures each entry as a CUDA graph on a card and
+    runs eagerly elsewhere; False runs eagerly everywhere; True asks for
+    graphs and raises on the CPU. The first call of an entry with a new
+    input layout runs it eagerly on the graph's static buffers, returns
+    those products and captures the graph; later calls copy their inputs
+    into the buffers and replay it. ``graphs`` holds the captured entries
+    (:class:`~blah2_tpu_torch.dsp.graph.StaticCall`) by (entry, layout).
+    ``before_capture``, where set, is called before each capture (the
+    runtime drains its other device thread there: a capture in the global
+    mode forbids other threads' unsafe CUDA calls).
     """
 
     def __init__(
@@ -80,10 +99,19 @@ class CpiPipeline(nn.Module):
         diag_load: float = 0.0,
         clutter_mode: str = "circular",
         fused_detect: "str | bool" = "auto",
+        graph: "str | bool" = "auto",
         device=None,
     ):
         super().__init__()
         self.device = device = resolve_device(device)
+        if graph == "auto":
+            graph = device.type == "cuda"
+        elif graph and device.type != "cuda":
+            raise ValueError(f"graph=True needs a CUDA device: CUDA graphs "
+                             f"do not run on {device}")
+        self.graph = bool(graph)
+        self.graphs: dict = {}
+        self.before_capture = None
         self.config = config
         self.dtype = dtype
         cap, proc = config.capture, config.process
@@ -293,17 +321,43 @@ class CpiPipeline(nn.Module):
                              f"got {t.dtype} of shape {tuple(t.shape)}")
         return complex_of_parts(t[:, 0], t[:, 1], self.dtype)
 
+    def _entry(self, name: str, body, inputs) -> CpiOutputs:
+        """``body(*inputs)``: eagerly, or through the CUDA graph of
+        (``name``, the inputs' layout), captured at its first call."""
+        if not self.graph:
+            return body(*inputs)
+        inputs = [as_tensor(a) for a in inputs]
+        key = (name, tuple((tuple(t.shape), t.dtype) for t in inputs))
+        call = self.graphs.get(key)
+        if call is not None:
+            return call(*inputs)
+        if self.before_capture is not None:
+            self.before_capture()
+        call = StaticCall(body, inputs, self.device, name=name)
+        out = call.capture(*inputs)
+        self.graphs[key] = call
+        return out
+
     def __call__(self, x, y) -> CpiOutputs:
         """One CPI from complex IQ arrays or (n, 2) planes, NumPy or torch."""
+        return self._entry("planes", self.run_planes, (x, y))
+
+    def run_planes(self, x, y) -> CpiOutputs:
+        """The eager body of :meth:`__call__`."""
         return super().__call__(self._complex(x), self._complex(y))
 
     def call_quad(self, quads) -> CpiOutputs:
         """One CPI from interleaved (n, 4) int16 [i1,q1,i2,q2] samples (the
         SDR/replay record layout), moved to the device in one copy."""
-        q = self._tensor(quads)
-        if q.dim() != 2 or q.shape[1] != 4:
+        shape = tuple(np.shape(quads))
+        if len(shape) != 2 or shape[1] != 4:
             raise ValueError(f"call_quad expects (n, 4) samples, got shape "
-                             f"{tuple(q.shape)}")
+                             f"{shape}")
+        return self._entry("quad", self.run_quad, (quads,))
+
+    def run_quad(self, quads) -> CpiOutputs:
+        """The eager body of :meth:`call_quad`."""
+        q = self._tensor(quads)
         return super().__call__(
             complex_of_parts(q[:, 0], q[:, 1], self.dtype),
             complex_of_parts(q[:, 2], q[:, 3], self.dtype))
@@ -311,6 +365,10 @@ class CpiPipeline(nn.Module):
     def call_quad12(self, packed) -> CpiOutputs:
         """One CPI from a packed-12-bit quad buffer (``pack12_quads`` of the
         (n, 4) int16 quads): 6 bytes a sample instead of 8."""
+        return self._entry("quad12", self.run_quad12, (packed,))
+
+    def run_quad12(self, packed) -> CpiOutputs:
+        """The eager body of :meth:`call_quad12`."""
         return super().__call__(*self.decode_quad12(packed))
 
     def decode_quad12(self, packed):
@@ -322,7 +380,16 @@ class CpiPipeline(nn.Module):
 
     def call_chunks(self, x_chunks, y_chunks) -> CpiOutputs:
         """One CPI delivered as equal-size chunks per channel: packed-12
-        uint8 chunks or (c, 2) plane chunks, concatenated on the device."""
+        uint8 chunks or (c, 2) plane chunks, concatenated on the device.
+        One graph per chunk count and layout."""
+        n_x = len(x_chunks)
+        return self._entry(
+            f"chunks{n_x}",
+            lambda *ch: self.run_chunks(ch[:n_x], ch[n_x:]),
+            (*x_chunks, *y_chunks))
+
+    def run_chunks(self, x_chunks, y_chunks) -> CpiOutputs:
+        """The eager body of :meth:`call_chunks`."""
         def cat(chunks):
             parts = [unpack_components(self._tensor(ch)) for ch in chunks]
             return complex_of_parts(torch.cat([p[0] for p in parts]),

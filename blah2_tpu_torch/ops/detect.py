@@ -276,7 +276,9 @@ class DetectKernel:
     :func:`detect_plain`; CUDA tensors launch the kernel (one launch on the
     current stream, for one map or a (B, nr, nc) stack, float32 power or
     complex64) or raise. ``launches`` counts the kernel launches, of both
-    modes; ``row_launches`` those of the row-block mode (:meth:`rows`)."""
+    modes; ``row_launches`` those of the row-block mode (:meth:`rows`). A
+    CUDA graph that holds launches adds them on every replay
+    (:meth:`add_launches`), so the counts stay kernel launches."""
 
     def __init__(self):
         self.launches = 0
@@ -357,6 +359,20 @@ class DetectKernel:
             raise RuntimeError(f"detect kernel launch failed: CUDA error {err}")
         self.launches += 1
         return DetectKernelOutputs(db, keep, noise, rawmax)
+
+    def add_launches(self, launches: int, row_launches: int = 0) -> None:
+        """Count launches made without a call of this wrapper: a CUDA
+        graph's replay adds those it holds; its capture, which launches
+        nothing, takes back what its calls counted."""
+        self.launches += launches
+        self.row_launches += row_launches
+
+    def scratch(self, device_index: int, stream: int):
+        """The map mode's scratch on card ``device_index`` and stream
+        handle ``stream`` (int32: one ticket counter per map, then the
+        partials), or None before a launch there."""
+        held = self._scratch.get((device_index, stream))
+        return None if held is None else held[1]
 
     @staticmethod
     def _scratch_for(table, dev, stream, batch, rows, nc, words_of):

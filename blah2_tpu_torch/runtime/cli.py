@@ -64,6 +64,10 @@ def main(argv=None) -> int:
     parser.add_argument("--profile-dir", default=None,
                         help="write a torch.profiler trace of the run to "
                              "this directory (trace.json)")
+    parser.add_argument("--eager", action="store_true",
+                        help="run each CPI from eager Python instead of "
+                             "replaying its CUDA graph (the single-device "
+                             "loop on a card; default: the graph)")
     parser.add_argument("--no-defer-fetch", action="store_true",
                         help="fetch each CPI's products synchronously "
                              "instead of one CPI behind (deferred fetch "
@@ -157,6 +161,7 @@ def main(argv=None) -> int:
                            staged_sample_every=args.staged_sample_every,
                            ingest_chunks=args.ingest_chunks,
                            defer_fetch=not args.no_defer_fetch,
+                           graph=False if args.eager else "auto",
                            recycle_every_cpis=args.transport_recycle,
                            mesh=mesh, halo_backend=args.halo_backend,
                            row_shard={"on": True, "off": False}.get(

@@ -93,6 +93,7 @@ class RadarRuntime:
         enable_pack12: bool = True,
         defer_fetch: bool = True,
         recycle_every_cpis: int = 0,
+        graph: "str | bool" = "auto",
         device=None,
     ):
         """``api_server``: an ApiServer for in-process publishing; when
@@ -129,6 +130,11 @@ class RadarRuntime:
         over several processes needs every process to build the runtime
         and run the same number of CPIs.
 
+        ``graph``: the single-device pipeline's CUDA graphs
+        (:class:`~blah2_tpu_torch.dsp.pipeline.CpiPipeline`): "auto" replays
+        each CPI's graph on a card, False runs the CPI from eager Python.
+        Staged samples are eager either way; the mesh loop is eager.
+
         ``device``: where the pipeline runs; ``None`` means the card and
         raises without one (``"cpu"`` runs on the host, as the tests do).
         With a mesh, the device of this process's first rank."""
@@ -141,7 +147,10 @@ class RadarRuntime:
         self.use_tcp_egress = use_tcp_egress
 
         self.pipeline = CpiPipeline(config, max_detections=max_detections,
-                                    device=self.device)
+                                    graph=graph, device=self.device)
+        # A capture in the global mode forbids the staged warm-up thread's
+        # allocations and syncs: drain that thread before each capture.
+        self.pipeline.before_capture = self._join_staged_warmup
         if self.on_card:
             # PyTorch loads its CUDA linear algebra library at the first
             # linalg call, and that first call fails when two threads make
@@ -347,7 +356,8 @@ class RadarRuntime:
 
     def _join_staged_warmup(self) -> None:
         """Drain the staged-warmup thread: it bails at the next stage
-        boundary, but work it has enqueued must finish before teardown."""
+        boundary, but work it has enqueued must finish before teardown or
+        a graph's capture."""
         t = self._staged_warmup_thread
         if t is not None and t is not threading.current_thread() \
                 and t.is_alive():

@@ -25,15 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-
-def tree_map(fn, obj):
-    """``fn`` over every tensor of a (nested) NamedTuple of tensors and
-    Nones, keeping its structure."""
-    if obj is None:
-        return None
-    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(tree_map(fn, v) for v in obj))
-    return fn(obj)
+from blah2_tpu_torch.device import tree_map
 
 
 class PinnedStager:

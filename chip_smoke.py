@@ -8,9 +8,12 @@ It builds the CUDA kernels from ``blah2_tpu_torch/csrc`` (the fused
 detector and the halo exchange, both ``nvcc`` runs started together),
 holds each against its plain PyTorch version, runs the golden recording and
 the default config (1.5 Msample CPIs, a 301 x 411 map) through the
-single-device pipeline's entry points, one CPI with sub-CPI spectra, the
-radar runtime on a replay of the default config (chunked pinned ingest,
-deferred fetch, staged samples), then the default config through the
+single-device pipeline's entry points (each captured as a CUDA graph at
+its first call and replayed after), the graphs against the eager calls bit
+for bit at the default config and for ECA-B, NLMS, OS-CFAR and nSub 4, one
+CPI with sub-CPI spectra, the radar runtime on a replay of the default
+config (chunked pinned ingest, deferred fetch, staged samples; the graph
+loop against the eager loop), then the default config through the
 sharded pipeline on 1 x 4 and 2 x 2 meshes of logical ranks on the one
 card, times the paths with CUDA events and the profiler; then the
 alternative algorithms (ECA-B, NLMS, OS-CFAR) on the single-device path,
@@ -98,6 +101,23 @@ def event_times(fn, n, warmup):
 # Profiled windows a check may take before the profiler's trace must hold
 # every launch the wrappers made (see profiled_whole).
 PROFILE_TRIES = 3
+# Every profiled window opens and closes with markers: a burst of launches
+# of torch.cuda._sleep's spin kernel and of device-to-device copies of
+# MARKER_BYTES bytes, which nothing else launches, waited for. The counts
+# leave them out. In whole runs of this script the trace lost records at a
+# window's edges now and then: at the opening edge the first device record,
+# in some windows the next ones too, whatever their kind (once all six
+# opening markers, over 3 ms); at the closing edge the host's records of
+# the last launches (PERF.md, Findings). The markers take those places:
+# each spins about 2 ms, so that a burst spans more than the longest
+# opening loss seen.
+MARKER_CYCLES = 4_000_000
+MARKER_LAUNCHES = 3
+MARKER_BYTES = 4099
+_MARKER_BUF: list = []
+#: Each profiled window's edges (split_markers), in order; the last is the
+#: window profiled_whole reports on a shortfall.
+PROFILE_LOG: list = []
 
 
 def shortfall(seen, want, what):
@@ -111,36 +131,106 @@ def profiled_whole(window, what):
     """``window()`` profiles one window and returns (result, shortfalls),
     the shortfalls as messages. A window whose trace lacks a record is
     profiled again, up to PROFILE_TRIES windows in all, and the check
-    fails after that: in whole runs of this script the trace has lacked a
-    record now and then (4 of 50 halo launches once; PERF.md, Open
-    questions)."""
+    fails after that, each short window's edges printed."""
     for attempt in range(1, PROFILE_TRIES + 1):
         result, short = window()
         if not short:
             return result
+        edges = PROFILE_LOG[-1] if PROFILE_LOG else {}
         print(f"note: {what}, profiled window {attempt} of {PROFILE_TRIES}: "
-              f"{'; '.join(short)}")
+              f"{'; '.join(short)}; edges {json.dumps(edges)}")
     check(False, f"{what}: {'; '.join(short)}, in each of {PROFILE_TRIES} "
           f"profiled windows")
 
 
-def device_profile(fn, n):
-    """Device time by kernel over ``n`` calls of ``fn`` (torch.profiler):
-    {kernel name: (total us, launches)}, read from the profiler's trace of
-    device activity. (In whole runs of this script the profiler's
-    ``events()`` listed fewer halo launches than the wrapper made, 17 of 20
-    and 31 of 50, and the trace 46 of 50 once; alone it listed all. Why is
-    not known; the checks that read a trace go through profiled_whole.)"""
+def _is_marker(record):
+    return "spin_kernel" in record["name"] or (
+        "DtoD" in record["name"]
+        and record["args"].get("bytes") == MARKER_BYTES)
+
+
+def split_markers(trace):
+    """Take the markers' device records out of a window's trace (see
+    profile_window) and return where its records sit against its
+    launches: the markers seen before the window's own first record and
+    after its last, of the 2 x MARKER_LAUNCHES launched at each edge; the
+    launch calls made under a graph's stream capture, which launch
+    nothing; and each other launch call (CUDA runtime or driver) with no
+    device record, by its place among them (the opening markers' first)
+    and its host time after the first, in us."""
+    kinds = ("kernel", "gpu_memcpy", "gpu_memset")
+    marks = [r for k in kinds for r in trace[k] if _is_marker(r)]
+    for k in kinds:
+        trace[k] = [r for r in trace[k] if not _is_marker(r)]
+    own = [r for k in kinds for r in trace[k]]
+    first = min((r["ts"] for r in own), default=float("inf"))
+    runtime = trace["cuda_runtime"] + trace["cuda_driver"]
+    spans = list(zip(
+        sorted(c["ts"] for c in runtime if "BeginCapture" in c["name"]),
+        sorted(c["ts"] for c in runtime if "EndCapture" in c["name"])))
+    calls = sorted((c for c in runtime if any(
+        k in c["name"] for k in ("Launch", "Memcpy", "Memset"))),
+        key=lambda c: c["ts"])
+    captured = [c for c in calls if any(a < c["ts"] < b for a, b in spans)]
+    calls = [c for c in calls if c not in captured]
+    seen = {r["args"].get("correlation") for r in own + marks}
+    t0 = calls[0]["ts"] if calls else 0.0
+    opening = sum(r["ts"] < first for r in marks)
+    return {
+        "opening_markers": [opening, 2 * MARKER_LAUNCHES],
+        "closing_markers": [len(marks) - opening, 2 * MARKER_LAUNCHES],
+        "calls": len(calls), "captured_calls": len(captured),
+        "lost": [{"at": i, "of": len(calls), "call": c["name"],
+                  "after_us": round(c["ts"] - t0, 1)}
+                 for i, c in enumerate(calls)
+                 if c["args"].get("correlation") not in seen],
+    }
+
+
+def markers():
+    """One burst of markers, waited for: MARKER_LAUNCHES spin kernels and
+    copies of MARKER_BYTES in turn."""
+    import torch
+
+    if not _MARKER_BUF:
+        _MARKER_BUF.append(torch.zeros((2, MARKER_BYTES), dtype=torch.uint8,
+                                       device="cuda"))
+    buf = _MARKER_BUF[0]
+    for _ in range(MARKER_LAUNCHES):
+        torch.cuda._sleep(MARKER_CYCLES)
+        buf[1].copy_(buf[0])
+    torch.cuda.synchronize()
+
+
+def profile_window(fn, cpu=True):
+    """Profile one call of ``fn`` (torch.profiler; CUDA activity, and the
+    host's operators where ``cpu``), the window opened and closed by
+    markers. Returns ``(fn(), trace)``, the trace's device events without
+    the markers; the window's edges (split_markers) go to PROFILE_LOG."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    markers()  # the buffer made, the kernel and the copy loaded
+    with profile(activities=acts) as prof:
+        markers()
+        result = fn()
+        torch.cuda.synchronize()
+        markers()
+    trace = trace_events(prof)
+    PROFILE_LOG.append(split_markers(trace))
+    return result, trace
+
+
+def device_profile(fn, n):
+    """Device time by kernel over ``n`` calls of ``fn`` in one profiled
+    window: {kernel name: (total us, launches)}, read from the profiler's
+    trace of device activity (markers left out)."""
+    def calls():
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
-    trace = trace_events(prof)
+
+    _, trace = profile_window(calls)
     by_name: dict = {}
     for ev in trace["kernel"] + trace["gpu_memcpy"] + trace["gpu_memset"]:
         tot, cnt = by_name.get(ev["name"], (0.0, 0))
@@ -560,7 +650,7 @@ def phase_default(dev, root):
     # clutter lags included. The unfused chain keeps the dB map in float64
     # (the fused detector's map is float32 on every device, as in JAX).
     c128 = CpiPipeline(cfg, dtype=torch.complex128, fused_detect=False,
-                       device=dev).call_quad(quads)
+                       graph=False, device=dev).call_quad(quads)
     d128 = float(np.abs(c128.db_map.cpu().numpy() - f64).max())
     print(f"default complex128 card vs cpu: map_err_db={d128:.3g} over all "
           f"{f64.size} cells")
@@ -919,7 +1009,7 @@ def phase_sharded(dev, root):
     xb = np.stack([(q[:, 0] + 1j * q[:, 1]) for q, _ in scenes])
     yb = np.stack([(q[:, 2] + 1j * q[:, 3]) for q, _ in scenes])
     single = CpiPipeline(cfg, dtype=torch.complex128, clutter_mode="linear",
-                         fused_detect=False, device=dev)
+                         fused_detect=False, graph=False, device=dev)
     refs = [single(xb[i], yb[i]) for i in range(2)]
     launches = {}
     for shape in ((1, 4), (2, 2)):
@@ -1247,20 +1337,32 @@ def run_bounded(rt, n, seconds):
     return wall
 
 
-def runtime_for(cfg, dev, stub=None):
+def runtime_for(cfg, dev, stub=None, graph="auto"):
     from blah2_tpu_torch.runtime.radar import RadarRuntime
 
     rt = RadarRuntime(cfg, api_server=stub, staged_sample_every=SAMPLE_EVERY,
-                      staged_warmup="sync", device=dev)
+                      staged_warmup="sync", graph=graph, device=dev)
     if stub is not None:
         stub.rt = rt
     return rt
 
 
+def product_leaves(out):
+    """The tensors or arrays of a CpiOutputs, in field order (None
+    kept)."""
+    leaves = []
+    for v in out:
+        if isinstance(v, tuple):
+            leaves.extend(v)
+        else:
+            leaves.append(v)
+    return leaves
+
+
 def trace_events(prof):
-    """The profiler's device events and CUDA runtime calls, from its
-    chrome trace: (kernels, memcpys, runtime calls), each a list of dicts
-    with ts/dur in us and the trace's args."""
+    """The profiler's device events and CUDA runtime and driver calls, from
+    its chrome trace, by category, each a list of dicts with ts/dur in us
+    and the trace's args."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1269,7 +1371,7 @@ def trace_events(prof):
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     pick = {"kernel": [], "gpu_memcpy": [], "gpu_memset": [],
-            "cuda_runtime": []}
+            "cuda_runtime": [], "cuda_driver": []}
     for ev in events:
         if ev.get("ph") == "X" and ev.get("cat") in pick:
             pick[ev["cat"]].append(ev)
@@ -1332,7 +1434,6 @@ def phase_runtime(dev, root, card):
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from blah2_tpu_torch.capture.source import Source
     from blah2_tpu_torch.config import load_config
@@ -1356,24 +1457,50 @@ def phase_runtime(dev, root, card):
         src.close_record_file()
         cfg = config(fname)
 
-        # The main path: counts at 0 just before, read just after.
+        def kept_products(rt):
+            outs = []
+            emit_products = rt._emit_products
+
+            def keep(out, t0, **kw):
+                outs.append(out)
+                return emit_products(out, t0, **kw)
+
+            rt._emit_products = keep
+            return outs
+
+        # The main path (the CPIs' CUDA graphs): counts at 0 just before,
+        # read just after.
         stub = StubApi()
         rt = runtime_for(cfg, dev, stub)
         check(rt.ingest_chunks == 8 and rt.defer_fetch
-              and rt._wire_dtype == np.int16, "runtime geometry")
-        outs = []
-        emit_products = rt._emit_products
-
-        def keep(out, t0, **kw):
-            outs.append(out)
-            return emit_products(out, t0, **kw)
-
-        rt._emit_products = keep
+              and rt._wire_dtype == np.int16 and rt.pipeline.graph,
+              "runtime geometry")
+        outs = kept_products(rt)
         rt.start_capture()
         detect_mod.detect.launches = 0
         wall = run_bounded(rt, RUNTIME_CPIS, 300.0)
         torch.cuda.synchronize()
         launches = detect_mod.detect.launches
+        check(len(rt.pipeline.graphs) == 1, f"{len(rt.pipeline.graphs)} "
+              f"graphs captured in one layout")
+
+        # The eager loop on the same replay: the same windows in the same
+        # order, so each CPI's products must be the graph run's bits.
+        stub_e = StubApi()
+        rt_e = runtime_for(cfg, dev, stub_e, graph=False)
+        outs_e = kept_products(rt_e)
+        rt_e.start_capture()
+        wall_e = run_bounded(rt_e, RUNTIME_CPIS, 300.0)
+        check(len(outs_e) == len(outs) == RUNTIME_CPIS,
+              f"{len(outs_e)} eager and {len(outs)} graph product sets")
+        for j, (a, b) in enumerate(zip(outs, outs_e)):
+            same = [(x is None and y is None) or (
+                x is not None and y is not None
+                and np.array_equal(x, y, equal_nan=True))
+                for x, y in zip(product_leaves(a), product_leaves(b))]
+            check(all(same), f"runtime CPI {j}: the graph loop's products "
+                  f"differ from the eager loop's")
+        docs_e = [json.loads(v) for p, v, _ in stub_e.log if p == "timing"]
         h2d_bytes = rt._stager.bytes / RUNTIME_CPIS
         check(rt._pack12_ok, "the packed-12 wire did not hold")
         check((rt.buffer1.dropped, rt.buffer2.dropped) == (0, 0),
@@ -1383,23 +1510,25 @@ def phase_runtime(dev, root, card):
         def window():
             rt2 = runtime_for(cfg, dev)
             rt2.start_capture()
-            torch.cuda.synchronize()
+
+            def run():
+                t_p = time.perf_counter()
+                calls = detect_mod.detect.launches
+                run_bounded(rt2, RUNTIME_PROFILED_CPIS, 300.0)
+                torch.cuda.synchronize()
+                return ((time.perf_counter() - t_p) * 1e3,
+                        detect_mod.detect.launches - calls)
+
             # Device activity and the CUDA runtime calls only: the host's
             # operators are not read, and leaving them out keeps the window
             # near the unprofiled run.
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t_p = time.perf_counter()
-                calls2 = detect_mod.detect.launches
-                run_bounded(rt2, RUNTIME_PROFILED_CPIS, 300.0)
-                torch.cuda.synchronize()
-                wall2_ms = (time.perf_counter() - t_p) * 1e3
-                calls2 = detect_mod.detect.launches - calls2
+            (wall2_ms, calls2), trace = profile_window(run, cpu=False)
             # The detect kernel: once per fused CPI and staged sample, and
             # once in the staged warm-up.
             want2 = RUNTIME_PROFILED_CPIS + 1
             check(calls2 == want2, f"profiled run: {calls2} detect launches, "
                   f"want {want2}")
-            facts = trace_facts(trace_events(prof))
+            facts = trace_facts(trace)
             copies = facts["copies"]
             # The chunk copies: 16 a CPI (8 chunks x 2 channels), from
             # pinned memory, on a stream of their own, under way while the
@@ -1478,9 +1607,17 @@ def phase_runtime(dev, root, card):
         return {"median": statistics.median(vals), "min": min(vals),
                 "max": max(vals)}
 
+    def stats_e(key):
+        vals = [d[key] for d in docs_e]
+        return {"median": statistics.median(vals), "min": min(vals),
+                "max": max(vals)}
+
     line = {
         "cpis": n, "staged_samples": len(staged), "wall_s": wall,
         "cpi_ms": stats("cpi"), "latency_ms": stats("latency"),
+        "eager": {"wall_s": wall_e, "cpi_ms": stats_e("cpi"),
+                  "latency_ms": stats_e("latency"),
+                  "bits": f"equal to the graph loop's in {n} CPIs"},
         "stage_mean_ms": {k: statistics.mean(d[k] for d in docs)
                           for k in sorted(TIMING_KEYS - {"cpi", "latency"})},
         "h2d_bytes_per_cpi": h2d_bytes,
@@ -1536,7 +1673,7 @@ def phase_nsub(dev, root):
     want_sub, want_map = ref.sub_spectra_db.numpy(), ref.db_map.numpy()
     check(want_sub.shape == (4, 2000), f"sub spectra {want_sub.shape}")
     card = CpiPipeline(cfg, dtype=torch.complex128, fused_detect=False,
-                       device=dev)
+                       graph=False, device=dev)
     fused = card.call_quad(quads)
     staged = card.call_staged(xp, yp)
     staged_sub = card.sub_spectra_fn(xp)
@@ -1550,7 +1687,8 @@ def phase_nsub(dev, root):
         "staged_map": float(np.abs(staged.db_map.cpu().numpy()
                                    - want_map).max()),
     }
-    c64 = CpiPipeline(cfg, device=dev).call_quad(quads).sub_spectra_db
+    c64 = CpiPipeline(cfg, graph=False,
+                      device=dev).call_quad(quads).sub_spectra_db
     c64 = c64.cpu().numpy()
     print(f"nSub 4 complex128 card vs cpu (dB): {json.dumps(err)}; "
           f"complex64 card sub spectra vs complex128: "
@@ -1616,6 +1754,167 @@ def det_cells(det):
     return set(zip(det.row.cpu()[v].tolist(), det.col.cpu()[v].tolist()))
 
 
+# The configs of phase_graph: the default and each single-device
+# alternative the CPI runs.
+GRAPH_CASES = {"default": None, **ALTERNATIVES,
+               "nsub4": SHARDED_ALTERNATIVES["nsub4"]}
+#: Seeds of the three different CPIs each graph is held to eager on.
+GRAPH_SEEDS = (11, 12, 13)
+#: (CPIs, warm-ups) timed by events on each path in the smoke: 20 after 3;
+#: NLMS (0.4-0.8 s a CPI eager, about 0.09 s replayed) 2 after 0 eager and
+#: 5 after 1 replayed. tools/torch_graph_timing.py times 20 after 3 on both.
+GRAPH_TIMED = {"graph": (20, 3), "eager": (20, 3), "graph_nlms": (5, 1),
+               "eager_nlms": (2, 0)}
+
+
+def graph_nodes(graph):
+    """Nodes of a captured ``torch.cuda.CUDAGraph`` kept with
+    ``keep_graph=True``, from cudaGraphGetNodes of the CUDA runtime that
+    PyTorch loaded; None where that runtime is not found."""
+    import ctypes
+
+    with open("/proc/self/maps") as f:
+        paths = sorted({ln.split()[-1] for ln in f if "libcudart.so" in ln})
+    if not paths:
+        return None
+    lib = ctypes.CDLL(paths[0])
+    n = ctypes.c_size_t(0)
+    err = lib.cudaGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                None, ctypes.byref(n))
+    return int(n.value) if err == 0 else None
+
+
+def same_bits(a, b):
+    """Whether two CpiOutputs hold the same bits, field by field."""
+    import torch
+
+    fa, fb = product_leaves(a), product_leaves(b)
+    return len(fa) == len(fb) and all(
+        (x is None and y is None) or (
+            x is not None and y is not None and x.dtype == y.dtype
+            and x.shape == y.shape and torch.equal(bits(x).cpu(),
+                                                   bits(y).cpu()))
+        for x, y in zip(fa, fb))
+
+
+def graph_case(dev, cfg, name, timed=GRAPH_TIMED, n_prof=None):
+    """One config's CPI through ``call_quad12`` eagerly and as a CUDA graph
+    on the card: the capture's times and nodes; on three different CPIs the
+    graph's products bit for bit the eager call's, an earlier product
+    unchanged by later replays, the detect kernel's ticket counters zero
+    after each replay and its launches counted once per replay; the
+    profiler's kernel records of ``n_prof`` replays (the detect kernel's
+    exact, through profiled_whole), busy ms and the idle share; ms per CPI
+    by events on each path, and each path's peak memory."""
+    import numpy as np
+    import torch
+
+    from blah2_tpu_torch.device import tree_map
+    from blah2_tpu_torch.dsp.pipeline import CpiPipeline
+    from blah2_tpu_torch.ops.detect import detect
+    from blah2_tpu_torch.ops.pack12 import pack12_quads
+
+    # An NLMS replay is about 29,500 kernel records: one a window.
+    n_prof = n_prof or (1 if name == "nlms" else 3)
+    packed = [torch.from_numpy(pack12_quads(default_scene(cfg, seed)[0]))
+              .to(dev) for seed in GRAPH_SEEDS]
+    eager = CpiPipeline(cfg, graph=False, device=dev)
+    graph = CpiPipeline(cfg, device=dev)
+    check(graph.graph and not eager.graph, f"{name}: graph switches")
+    mib = 2 ** 20
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    want = [eager.call_quad12(p) for p in packed]
+    torch.cuda.synchronize()
+    peak_eager = (torch.cuda.max_memory_allocated() - base) / mib
+    check(not same_bits(want[0], want[1]), f"{name}: two CPIs, same bits")
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    first = graph.call_quad12(packed[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    held_mib = (torch.cuda.memory_allocated() - base) / mib
+    (call,) = graph.graphs.values()
+    check(same_bits(first, want[0]), f"{name}: the warm-up's products "
+          f"differ from the eager call's")
+    per_replay = 0 if name == "os" else 1
+    check(call.launches == (per_replay, 0),
+          f"{name}: the graph holds {call.launches} detect launches")
+
+    outs, launches = [], detect.launches
+    for p in packed:
+        outs.append(graph.call_quad12(p))
+        if call.scratch is not None:
+            zero = int(call.scratch[:1].abs().sum())
+            check(zero == 0, f"{name}: ticket counter {zero} after a replay")
+        if len(outs) == 1:
+            kept = tree_map(lambda t: t.cpu(), outs[0])
+    launches = detect.launches - launches
+    check(launches == per_replay * len(packed),
+          f"{name}: {launches} detect launches in {len(packed)} replays")
+    for j, (got, ref) in enumerate(zip(outs, want)):
+        check(same_bits(got, ref), f"{name}: CPI {j} (seed "
+              f"{GRAPH_SEEDS[j]}): the graph's products differ from eager")
+    check(same_bits(outs[0], kept), f"{name}: a later replay changed an "
+          f"earlier call's products")
+    peak_graph = (torch.cuda.max_memory_allocated() - base) / mib
+
+    def window():
+        before = detect.launches
+        by_name = device_profile(lambda: graph.call_quad12(packed[1]), n_prof)
+        calls = detect.launches - before
+        seen = sum(c for k, (_, c) in by_name.items() if "detect_" in k)
+        return by_name, shortfall(seen, calls, "detect launches (one a "
+                                  "replay)") + shortfall(
+            calls, per_replay * n_prof, "detect calls counted")
+
+    by_name = profiled_whole(window, f"graph {name}")
+    busy_ms = sum(t for t, _ in by_name.values()) / n_prof / 1e3
+    n_g, w_g = timed["graph_nlms" if name == "nlms" else "graph"]
+    n_e, w_e = timed["eager_nlms" if name == "nlms" else "eager"]
+    t_graph = event_times(lambda: graph.call_quad12(packed[2]), n_g, w_g)
+    t_eager = event_times(lambda: eager.call_quad12(packed[2]), n_e, w_e)
+    line = {
+        "config": name, "ms_per_cpi_graph": t_graph,
+        "ms_per_cpi_eager": t_eager, "cpis_graph": n_g, "cpis_eager": n_e,
+        "device_busy_ms_per_cpi": busy_ms,
+        "idle_share_graph": 1.0 - busy_ms / t_graph["median"],
+        "idle_share_eager": 1.0 - busy_ms / t_eager["median"],
+        "kernels_per_cpi": sum(c for _, c in by_name.values()) / n_prof,
+        "graph_nodes": graph_nodes(call.graph), **call.stats,
+        "first_call_s": first_s, "detect_launches_per_replay": per_replay,
+        "peak_mib_eager": peak_eager, "peak_mib_graph": peak_graph,
+        "held_mib_graph": held_mib,
+        "cufft_plan_cache": [torch.backends.cuda.cufft_plan_cache.size,
+                             torch.backends.cuda.cufft_plan_cache.max_size],
+        "detections": [int(o.detections.count) for o in outs],
+        "bits": "equal on CPIs of seeds " + ", ".join(map(str, GRAPH_SEEDS)),
+    }
+    check(all(np.isfinite(v) for v in (busy_ms, t_graph["median"])),
+          f"{name}: timing")
+    return line
+
+
+def phase_graph(dev, root, card):
+    """The single-device CPI as a CUDA graph at the default config and for
+    ECA-B, NLMS, OS-CFAR and nSub 4 (graph_case each). Prints one ``graph
+    {...}`` line a config."""
+    lines = {}
+    for name, alternative in GRAPH_CASES.items():
+        t0 = time.perf_counter()
+        cfg = alternative_config(root, alternative) if alternative else \
+            alternative_config(root, ("data", {}))
+        line = graph_case(dev, cfg, name)
+        line.update(wall_s=time.perf_counter() - t0, card=card)
+        print("graph " + json.dumps(line))
+        lines[name] = line
+    return lines
+
+
 def phase_alternatives(dev, root, card):
     """ECA-B (nBatches 8) and NLMS (mu 0.1) with CA-CFAR, and Wiener with
     OS-CFAR (rank 0.75), at the default config through the single-device
@@ -1642,7 +1941,8 @@ def phase_alternatives(dev, root, card):
                              device="cpu").call_quad(quads)
         cpu_s = time.perf_counter() - t0
         card128 = CpiPipeline(cfg, dtype=torch.complex128,
-                              fused_detect=False, device=dev).call_quad(quads)
+                              fused_detect=False, graph=False,
+                              device=dev).call_quad(quads)
         f64 = cpu128.db_map.numpy()
         d128 = float(np.abs(card128.db_map.cpu().numpy() - f64).max())
         v = cpu128.detections.valid
@@ -1669,7 +1969,7 @@ def phase_alternatives(dev, root, card):
         fused_vs_unfused = None
         if launches:
             # The kernel against the unfused chain on the same packed input.
-            u = CpiPipeline(cfg, fused_detect=False,
+            u = CpiPipeline(cfg, fused_detect=False, graph=False,
                             device=dev).call_quad12(packed)
             fused_vs_unfused = max(
                 float((u.db_map - out.db_map).abs().max()),
@@ -1898,7 +2198,8 @@ def phase_runtime_mesh(dev, root, card, tmp):
     cfg = config("")
     src = Source("RspDuo", cfg.capture.fs, cfg.capture.fc, path=tmp)
     fname = src.open_record_file()
-    linear = CpiPipeline(cfg, clutter_mode="linear", device=dev)
+    linear = CpiPipeline(cfg, clutter_mode="linear", graph=False,
+                         device=dev)
     refs = []
     for seed in (11, 12, 13):
         q, _ = default_scene(cfg, seed)
@@ -2594,6 +2895,19 @@ def worker_main(argv) -> int:
     return {"step": worker_step, "cli": worker_cli}[args.worker](args)
 
 
+#: Wall seconds of each phase of main, in order.
+PHASE_S: dict = {}
+
+
+def timed(name, phase, *args):
+    """``phase(*args)``, its wall seconds kept in PHASE_S under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t0, 2)
+
+
 def main() -> int:
     # The smoke drives one card, the first this process may see; it hides
     # the others (before CUDA starts, and from its workers too), so the
@@ -2633,30 +2947,36 @@ def main() -> int:
             with open(log) as f:
                 print(f.read().strip())
 
-    err, rows_err = phase_kernel_vs_plain(dev)
-    halo_err = phase_halo_vs_plain(dev)
-    phase_golden(dev, ROOT)
-    pipe, packed, launches, _ = phase_default(dev, ROOT)
+    err, rows_err = timed("kernel_vs_plain", phase_kernel_vs_plain, dev)
+    halo_err = timed("halo_vs_plain", phase_halo_vs_plain, dev)
+    timed("golden", phase_golden, dev, ROOT)
+    pipe, packed, launches, _ = timed("default", phase_default, dev, ROOT)
     # The runtime's profile first: in whole runs of this script a profiler
     # window that followed several others has lost a record.
-    runtime_launches, runtime = phase_runtime(dev, ROOT, card)
-    timing = phase_timing(pipe, packed, card)
-    prof = phase_profile(pipe, packed, timing["cpi_ms_median"])
-    phase_nsub(dev, ROOT)
-    halo_launches, sharded_detect, _ = phase_sharded(dev, ROOT)
-    sh = phase_sharded_timing(dev, ROOT, card)
-    alt = phase_alternatives(dev, ROOT, card)
-    sh_alt = phase_sharded_alternatives(dev, ROOT, card)
+    runtime_launches, runtime = timed("runtime", phase_runtime, dev, ROOT,
+                                      card)
+    timing = timed("timing", phase_timing, pipe, packed, card)
+    prof = timed("profile", phase_profile, pipe, packed,
+                 timing["cpi_ms_median"])
+    graphs = timed("graph", phase_graph, dev, ROOT, card)
+    timed("nsub", phase_nsub, dev, ROOT)
+    halo_launches, sharded_detect, _ = timed("sharded", phase_sharded, dev,
+                                             ROOT)
+    sh = timed("sharded_timing", phase_sharded_timing, dev, ROOT, card)
+    alt = timed("alternatives", phase_alternatives, dev, ROOT, card)
+    sh_alt = timed("sharded_alternatives", phase_sharded_alternatives, dev,
+                   ROOT, card)
     with tempfile.TemporaryDirectory() as tmp:
-        mesh_launches, mesh_rt, replay, mesh_maps = phase_runtime_mesh(
-            dev, ROOT, card, tmp)
-        mp = phase_multiprocess(dev, ROOT, card)
-        mp_rt = phase_runtime_multiprocess(ROOT, card, replay, mesh_maps)
-    bench_detect, bench_halo = phase_bench()
-    topo = phase_topology(dev, card)
-    sup = phase_supervised_soak(card)
-    dry = phase_dryrun(card, visible)
-    proj = phase_projection(dev, card)
+        mesh_launches, mesh_rt, replay, mesh_maps = timed(
+            "runtime_mesh", phase_runtime_mesh, dev, ROOT, card, tmp)
+        mp = timed("multiprocess", phase_multiprocess, dev, ROOT, card)
+        mp_rt = timed("runtime_multiprocess", phase_runtime_multiprocess,
+                      ROOT, card, replay, mesh_maps)
+    bench_detect, bench_halo = timed("bench", phase_bench)
+    topo = timed("topology", phase_topology, dev, card)
+    sup = timed("supervised_soak", phase_supervised_soak, card)
+    dry = timed("dryrun", phase_dryrun, card, visible)
+    proj = timed("projection", phase_projection, dev, card)
 
     kern_ms = min(timing["detect_ms"])
     plain_ms = min(timing["detect_plain_ms"])
@@ -2664,11 +2984,33 @@ def main() -> int:
           f"median over {timing['cpis']} CPIs (packed-12 on device to "
           f"detections); detect kernel {kern_ms * 1e3:.2f} us, detect_plain "
           f"{plain_ms * 1e3:.2f} us, bound {timing['bound_ms'] * 1e3:.3f} us")
+    for k, v in graphs.items():
+        print(f"graph {k}, default config on {card}: "
+              f"{v['ms_per_cpi_graph']['median']:.3f} ms/CPI replayed, "
+              f"{v['ms_per_cpi_eager']['median']:.3f} eager (medians of "
+              f"{v['cpis_graph']} and {v['cpis_eager']}); device busy "
+              f"{v['device_busy_ms_per_cpi']:.3f} ms, idle "
+              f"{v['idle_share_graph']:.3f} / {v['idle_share_eager']:.3f}; "
+              f"capture {v['capture_ms']:.1f} ms, instantiate "
+              f"{v['instantiate_ms']:.1f} ms, {v['graph_nodes']} nodes")
     print(f"runtime, default config on {card}: "
           f"{runtime['cpi_ms']['median']:.3f} ms/CPI (cpi key) and "
           f"{runtime['latency_ms']['median']:.3f} ms latency, median over "
-          f"{runtime['cpis']} CPIs of an unpaced replay; card idle "
+          f"{runtime['cpis']} CPIs of an unpaced replay (graph); eager "
+          f"{runtime['eager']['cpi_ms']['median']:.3f} and "
+          f"{runtime['eager']['latency_ms']['median']:.3f} ms; card idle "
           f"{runtime['idle_share']:.3f} of a profiled CPI")
+    print("profiler " + json.dumps({
+        "windows": len(PROFILE_LOG),
+        "opening_markers_lost": {
+            i: e["opening_markers"] for i, e in enumerate(PROFILE_LOG)
+            if e["opening_markers"][0] < e["opening_markers"][1]},
+        "closing_markers_lost": {
+            i: e["closing_markers"] for i, e in enumerate(PROFILE_LOG)
+            if e["closing_markers"][0] < e["closing_markers"][1]},
+        "calls_without_records": {i: e["lost"][:4] for i, e in
+                                  enumerate(PROFILE_LOG) if e["lost"]},
+        "captured_calls": [e["captured_calls"] for e in PROFILE_LOG]}))
     print(f"sharded default config, 1 x 4 ranks on {card}: "
           f"{sh['cpi_ms_median']:.3f} ms/CPI median over {sh['cpis']} CPIs "
           f"(planes on device to detections); halo kernel "
@@ -2703,6 +3045,7 @@ def main() -> int:
           f"{sd['first_product_s_per_cycle']} s, kernel build "
           f"{sd['kernel_build_s']:.3f} s, RSS max "
           f"{sd['rss_mb_max_observed']:.1f} MB")
+    print("phase_s " + json.dumps(PHASE_S))
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "detect",
@@ -2712,6 +3055,8 @@ def main() -> int:
         "launches": runtime_launches,
         "launches_by_path": {
             "runtime": runtime_launches, "call_quad12": launches,
+            **{f"graph_{k}_per_replay": v["detect_launches_per_replay"]
+               for k, v in graphs.items()},
             **{f"{k}_call_quad12": v["detect_launches_per_cpi"]
                for k, v in alt.items()},
             "sharded_step": sharded_detect,

@@ -863,3 +863,109 @@ def test_dryrun_across_processes_with_two_cards_each(card):
         pytest.skip("needs four CUDA devices")
     assert entry.dryrun_multihost(2, 2, seconds=240) == \
         {"2x2": 0.0, "1x4": 0.0}
+
+
+def _graph_config(name):
+    import copy
+
+    from blah2_tpu_torch.config import config_from_dict
+
+    if name in _ALTERNATIVES:
+        return _alternative_config(name)
+    d = copy.deepcopy(_VERIFY)
+    if name == "nsub2":
+        d["process"]["spectrum"] = {"nSub": 2}
+    return config_from_dict(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["default", "nsub2", *sorted(_ALTERNATIVES)])
+def test_graph_replays_give_the_eager_bits_on_card(card, name):
+    """``call_quad12`` and ``call_chunks`` captured at their first call
+    (one graph each) and replayed on two different CPIs: each product the
+    eager pipeline's bits, an earlier product unchanged by a later replay,
+    the detect kernel counted once a replay (never under OS-CFAR) and its
+    ticket counter zero after each."""
+    from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
+    from blah2_tpu_torch.dsp.pipeline import CpiPipeline
+    from blah2_tpu_torch.ops.pack12 import pack12_planes, pack12_quads
+
+    cfg = _graph_config(name)
+    cpis = []
+    for seed in (7, 8):
+        x, y = synthetic_cpi(20_000, 200_000, [TargetSpec(40, -77.0, 0.05)],
+                             clutter_amplitude=3.0, noise_amplitude=1e-3,
+                             seed=seed)
+        q = np.clip(np.round(np.stack([x.real, x.imag, y.real, y.imag],
+                                      axis=1) * 150), -2048, 2047
+                    ).astype(np.int16)
+        split = np.split(np.arange(q.shape[0]), 4)
+        cpis.append((torch.from_numpy(pack12_quads(q)).to(card),
+                     [torch.from_numpy(pack12_planes(q[i, :2])).to(card)
+                      for i in split],
+                     [torch.from_numpy(pack12_planes(q[i, 2:])).to(card)
+                      for i in split]))
+    eager = CpiPipeline(cfg, graph=False, device=card)
+    pipe = CpiPipeline(cfg, device=card)
+    assert pipe.graph
+    per_replay = 0 if name == "os" else 1
+
+    def equal(a, b):
+        for u, v in zip(a, b):
+            if isinstance(u, tuple):
+                assert equal(u, v)
+            elif u is None:
+                assert v is None
+            else:
+                if u.is_complex():
+                    u, v = torch.view_as_real(u), torch.view_as_real(v)
+                assert torch.equal(u, v)
+        return True
+
+    for entry in ("quad12", "chunks"):
+        def run(p, cpi):
+            return p.call_quad12(cpi[0]) if entry == "quad12" \
+                else p.call_chunks(cpi[1], cpi[2])
+
+        assert equal(run(pipe, cpis[0]), run(eager, cpis[0]))  # capture
+        launches = tdetect.detect.launches
+        outs = [run(pipe, cpi) for cpi in (cpis[1], cpis[0])]
+        torch.cuda.synchronize()
+        assert tdetect.detect.launches - launches == 2 * per_replay
+        assert equal(outs[0], run(eager, cpis[1]))
+        assert equal(outs[1], run(eager, cpis[0]))
+        assert not torch.equal(outs[0].db_map, outs[1].db_map)
+    assert len(pipe.graphs) == 2
+    for call in pipe.graphs.values():
+        assert call.launches == (per_replay, 0)
+        if per_replay:
+            assert int(call.scratch[:1].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_detect_over_48kb_replays_in_a_graph(card):
+    """The "wide" case (more than 48 KB of shared memory a block) through a
+    StaticCall: its eager warm-up sets the kernel's shared-memory attribute,
+    the capture holds one launch, and each replay on two maps gives the
+    eager launch's bits with the ticket counter back at zero."""
+    from blah2_tpu_torch.dsp.graph import StaticCall
+
+    z, args = _cases()["wide"]
+    fd = FusedDetector(*args, device=card)
+    zc = torch.from_numpy(z).to(card)
+    kw = (fd._scale, fd._cell_ok, fd.n_guard, fd.n_train, fd.win_rows,
+          fd.win_cols)
+    call = StaticCall(lambda m: tdetect.detect(m, *kw), [zc], card,
+                      name="wide")
+    call.capture(zc)
+    assert call.launches == (1, 0)
+    for m in (zc, zc * 1.5):
+        launches = tdetect.detect.launches
+        got = call(m)
+        want = tdetect.detect(m.contiguous(), *kw)
+        torch.cuda.synchronize()
+        assert tdetect.detect.launches == launches + 2
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert int(got.keep.sum()) >= 1
+        assert int(call.scratch[:1].abs().sum()) == 0
