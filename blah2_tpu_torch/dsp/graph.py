@@ -25,10 +25,24 @@ raises there, named by its line; then it captures the body in the global
 capture mode. A capture that fails raises :class:`GraphCaptureError` with
 the line of the package that failed; nothing falls back to eager.
 
-The detect kernel's wrapper counts Python calls. A replay makes none, so
-the graph keeps the launches its capture recorded and adds them to the
-wrapper's counts on every replay; the capture, which launches nothing,
-takes its own back.
+The kernel wrappers count their Python calls, and the collectives log
+what they move on their mesh (``parallel/collectives.py`` ``count_bytes``).
+A capture runs the body's Python without launching anything, and a replay
+runs no Python: so the graph keeps what its capture counted and logged,
+takes it back from the counts and the open logs (:meth:`StaticCall.record`),
+and adds it on every replay. A replay then counts and logs what an eager
+call of the body would. Each wrapper that counts registers itself in
+:data:`COUNTERS` (``snapshot()``: its counts by name; ``add(delta,
+sign)``); this module names none of them.
+
+A body that is a bound method is held weakly, so the owner of a graph (a
+pipeline, which holds its graphs) and the graph form no reference cycle:
+a dropped pipeline frees its graphs' memory at once, not when the cyclic
+collector runs.
+
+The sharded step (``parallel/sharded.py``) takes the same class: its inputs
+are the per-rank planes flattened, None at the ranks of another process,
+and its products a tree of NamedTuples.
 """
 
 from __future__ import annotations
@@ -37,13 +51,14 @@ import gc
 import os
 import time
 import traceback
+import types
+import weakref
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from blah2_tpu_torch.device import tree_map
-from blah2_tpu_torch.ops.detect import detect
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -73,37 +88,80 @@ def _failing_line(exc: BaseException) -> str:
     return f"{path}:{f.lineno} ({(f.line or '').strip()})"
 
 
-def _counts() -> tuple:
-    return detect.launches, detect.row_launches
+#: The kernel wrappers' counters: each has ``snapshot()``, its counts by
+#: name (names unique across the list), and ``add(delta, sign)``, which adds
+#: ``sign`` times its names' entries of ``delta``. Wrappers register at
+#: import.
+COUNTERS: list = []
+
+
+def counts() -> dict:
+    """The registered wrappers' counts by name."""
+    out: dict = {}
+    for counter in COUNTERS:
+        out.update(counter.snapshot())
+    return out
+
+
+def add_counts(delta: dict, sign: int = 1) -> None:
+    """Add ``sign`` times ``delta`` (names of :func:`counts`) to the
+    wrappers' counts."""
+    for counter in COUNTERS:
+        counter.add(delta, sign)
 
 
 class StaticCall:
     """``body(*buffers)`` over static input buffers on ``device``, made
-    like ``inputs``; eager until :meth:`capture`, a graph replay after.
+    like ``inputs`` (None where an input is None); eager until
+    :meth:`capture`, a graph replay after. A bound method ``body`` is held
+    weakly.
 
-    ``launches``: the detect kernel's (launches, row-block launches) that
-    one replay makes. ``stats``: the capture's ``warmup_ms``,
-    ``capture_ms`` and ``instantiate_ms`` (host wall)."""
+    ``meshes``: the meshes whose collective logs the body appends to.
+    ``counts``: what one replay adds to :func:`counts` (names whose count
+    moves); ``ops``: what it appends to each mesh's open log.
+    ``replays``: the replays so far.
+    ``stream``: the capture's stream, on which the warm-up laid out the
+    kernels' scratch that the graph's launches use.
+    ``stats``: the capture's ``warmup_ms``, ``capture_ms`` and
+    ``instantiate_ms`` (host wall)."""
 
-    def __init__(self, body: Callable, inputs: Sequence[torch.Tensor],
-                 device: torch.device, name: str = "cpi"):
-        self.body = body
+    def __init__(self, body: Callable,
+                 inputs: Sequence[Optional[torch.Tensor]],
+                 device: torch.device, name: str = "cpi",
+                 meshes: Sequence = ()):
+        self._body = weakref.WeakMethod(body) \
+            if isinstance(body, types.MethodType) else lambda: body
         self.device = device
         self.name = name
-        self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device)
+        self.meshes = tuple(meshes)
+        self.inputs = [None if t is None else
+                       torch.empty(t.shape, dtype=t.dtype, device=device)
                        for t in inputs]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs = None
         self.stream = None
-        self.scratch = None
-        self.launches = (0, 0)
+        self.replays = 0
+        self.counts: dict = {}
+        self.ops: list = [[] for _ in self.meshes]
         self.stats: dict = {}
+
+    @property
+    def body(self) -> Callable:
+        body = self._body()
+        if body is None:
+            raise ReferenceError(f"{self.name}: the body's owner is gone")
+        return body
 
     def _load(self, inputs) -> None:
         if len(inputs) != len(self.inputs):
             raise ValueError(f"{self.name}: {len(inputs)} inputs, the "
                              f"graph holds {len(self.inputs)}")
         for buf, t in zip(self.inputs, inputs):
+            if buf is None or t is None:
+                if buf is not t:
+                    raise ValueError(f"{self.name}: the inputs are None at "
+                                     f"other places than the buffers")
+                continue
             if tuple(t.shape) != tuple(buf.shape) or t.dtype != buf.dtype:
                 raise ValueError(
                     f"{self.name}: input {tuple(t.shape)} {t.dtype}, the "
@@ -112,13 +170,37 @@ class StaticCall:
 
     def __call__(self, *inputs):
         """The body's outputs for ``inputs``: run eagerly on the buffers,
-        or the graph replayed and its outputs cloned."""
+        or the graph replayed, what it counts added and its outputs
+        cloned."""
         self._load(inputs)
         if self.graph is None:
             return self.body(*self.inputs)
         self.graph.replay()
-        detect.add_launches(*self.launches)
+        self.replays += 1
+        add_counts(self.counts)
+        for mesh, ops in zip(self.meshes, self.ops):
+            if mesh.comm_log is not None:
+                mesh.comm_log.extend(ops)
         return tree_map(torch.clone, self.outputs)
+
+    def record(self, fn: Callable):
+        """``fn()`` (the body under capture), what it counts kept for the
+        replays: the wrappers' counts it moved, taken back, and the
+        collectives it logged on :attr:`meshes`, kept out of the logs open
+        there."""
+        before = counts()
+        saved = [mesh.comm_log for mesh in self.meshes]
+        self.ops = [[] for _ in self.meshes]
+        for mesh, log in zip(self.meshes, self.ops):
+            mesh.comm_log = log
+        try:
+            return fn()
+        finally:
+            self.counts = {k: v - before[k] for k, v in counts().items()
+                           if v != before[k]}
+            add_counts(self.counts, -1)
+            for mesh, log in zip(self.meshes, saved):
+                mesh.comm_log = log
 
     def capture(self, *inputs):
         """Warm up and capture the body on a stream of its own; later
@@ -144,14 +226,18 @@ class StaticCall:
         # The warm-up's outputs were made on the capture stream: keep their
         # memory from new work there until the caller's stream is done.
         tree_map(lambda t: t.record_stream(current), warm)
-        # The detect kernel's counters and partials on this stream, laid
-        # out by the warm-up; the graph's launches use them.
-        self.scratch = detect.scratch(dev.index, stream.cuda_stream)
         t1 = time.perf_counter()
 
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = _counts()
         failed: list = []
+
+        def body():
+            try:
+                return self.body(*self.inputs)
+            except BaseException as e:
+                failed.append(e)
+                raise
+
         # Python's collector must not run inside the capture: a cycle it
         # frees may hold device memory of the package's own (a halo plan's
         # cudaMalloc'ed window), whose cudaFree the global capture mode
@@ -160,11 +246,7 @@ class StaticCall:
         gc.disable()
         try:
             with torch.cuda.graph(graph, stream=stream):
-                try:
-                    outputs = self.body(*self.inputs)
-                except BaseException as e:
-                    failed.append(e)
-                    raise
+                outputs = self.record(body)
         except Exception as e:
             cause = failed[0] if failed else e
             raise GraphCaptureError(
@@ -173,12 +255,10 @@ class StaticCall:
         finally:
             if collecting:
                 gc.enable()
-            held = tuple(a - b for a, b in zip(_counts(), before))
-            detect.add_launches(*(-h for h in held))
         t2 = time.perf_counter()
         graph.instantiate()
         t3 = time.perf_counter()
-        self.graph, self.outputs, self.launches = graph, outputs, held
+        self.graph, self.outputs = graph, outputs
         self.stats = {"warmup_ms": (t1 - t0) * 1e3,
                       "capture_ms": (t2 - t1) * 1e3,
                       "instantiate_ms": (t3 - t2) * 1e3}

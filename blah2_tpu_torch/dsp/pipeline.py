@@ -23,6 +23,7 @@ The tracker stays on the host, as in the JAX package.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -383,9 +384,11 @@ class CpiPipeline(nn.Module):
         uint8 chunks or (c, 2) plane chunks, concatenated on the device.
         One graph per chunk count and layout."""
         n_x = len(x_chunks)
+        # Weakly, as StaticCall holds a bound method: the graph and this
+        # pipeline form no cycle.
+        run = weakref.WeakMethod(self.run_chunks)
         return self._entry(
-            f"chunks{n_x}",
-            lambda *ch: self.run_chunks(ch[:n_x], ch[n_x:]),
+            f"chunks{n_x}", lambda *ch: run()(ch[:n_x], ch[n_x:]),
             (*x_chunks, *y_chunks))
 
     def run_chunks(self, x_chunks, y_chunks) -> CpiOutputs:

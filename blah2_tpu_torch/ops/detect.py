@@ -54,6 +54,7 @@ from blah2_tpu_torch.device import (as_numpy, current_stream_handle,
                                     resolve_device)
 from blah2_tpu_torch.dsp.cfar import (CfarDetections, cfar_threshold_scale,
                                       extract_topk)
+from blah2_tpu_torch.dsp.graph import COUNTERS
 
 
 class DetectKernelOutputs(NamedTuple):
@@ -367,11 +368,23 @@ class DetectKernel:
         self.launches += launches
         self.row_launches += row_launches
 
-    def scratch(self, device_index: int, stream: int):
-        """The map mode's scratch on card ``device_index`` and stream
-        handle ``stream`` (int32: one ticket counter per map, then the
-        partials), or None before a launch there."""
-        held = self._scratch.get((device_index, stream))
+    def snapshot(self) -> dict:
+        """The counts by name, for ``dsp/graph.py`` ``COUNTERS``."""
+        return {"detect": self.launches, "detect_rows": self.row_launches}
+
+    def add(self, delta: dict, sign: int = 1) -> None:
+        """Add ``sign`` times ``delta``'s entries of :meth:`snapshot`'s
+        names."""
+        self.add_launches(sign * delta.get("detect", 0),
+                          sign * delta.get("detect_rows", 0))
+
+    def scratch(self, device_index: int, stream: int, rows: bool = False):
+        """The map mode's scratch (the row-block mode's, with ``rows``) on
+        card ``device_index`` and stream handle ``stream`` (int32: one
+        ticket counter per map or block, then the partials), or None
+        before a launch there."""
+        table = self._row_scratch if rows else self._scratch
+        held = table.get((device_index, stream))
         return None if held is None else held[1]
 
     @staticmethod
@@ -484,8 +497,10 @@ class DetectKernel:
 
 
 #: The detect wrapper used by :class:`FusedDetector`; its ``launches``
-#: count shows whether a run went through the kernel.
+#: count shows whether a run went through the kernel. A CUDA graph re-adds
+#: what it holds on every replay.
 detect = DetectKernel()
+COUNTERS.append(detect)
 
 
 class FusedDetector(nn.Module):

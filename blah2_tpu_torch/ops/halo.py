@@ -62,6 +62,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 from blah2_tpu_torch.device import current_stream_handle
+from blah2_tpu_torch.dsp.graph import COUNTERS
 from blah2_tpu_torch.parallel import distributed
 from blah2_tpu_torch.parallel.collectives import exchange
 from blah2_tpu_torch.parallel.mesh import RadarMesh
@@ -552,6 +553,27 @@ class HaloKernel:
             self.pairs[route] += n
         return out
 
+    def add_launches(self, launches: int, pairs: Dict[str, int]) -> None:
+        """Count launches and pairs made without a call of this wrapper: a
+        CUDA graph's replay adds those it holds; its capture, which
+        launches nothing, takes back what its calls counted."""
+        self.launches += launches
+        for route, n in pairs.items():
+            self.pairs[route] += n
+
+    def snapshot(self) -> dict:
+        """The counts by name (``halo``, and ``halo_<route>`` per route),
+        for ``dsp/graph.py`` ``COUNTERS``."""
+        return {"halo": self.launches,
+                **{"halo_" + k: v for k, v in self.pairs.items()}}
+
+    def add(self, delta: dict, sign: int = 1) -> None:
+        """Add ``sign`` times ``delta``'s entries of :meth:`snapshot`'s
+        names."""
+        self.add_launches(sign * delta.get("halo", 0),
+                          {k: sign * delta.get("halo_" + k, 0)
+                           for k in self.pairs})
+
     def error_words(self, mesh: Optional[RadarMesh] = None
                     ) -> List[torch.Tensor]:
         """The error words of the plans that take flags (of ``mesh``, or of
@@ -585,5 +607,7 @@ class HaloKernel:
 
 
 #: The halo wrapper used by ``parallel/halo.py``; its ``launches`` count
-#: shows whether a run went through the kernel.
+#: shows whether a run went through the kernel. A CUDA graph re-adds what
+#: it holds on every replay.
 halo_permute = HaloKernel()
+COUNTERS.append(halo_permute)

@@ -51,6 +51,13 @@ module's:
     JAX module's ``use_pallas_detect`` does
     (`blah2_tpu/parallel/sharded.py:669`): it computes CA-CFAR.
 
+On one card in one process the step runs as a CUDA graph, as JAX runs it
+as one compiled program (``blah2_tpu/parallel/sharded.py:315``): one graph
+per input layout (per-rank plane shapes and dtypes, the batch), captured at
+its first call by ``dsp/graph.py``'s ``StaticCall`` and replayed after,
+both kernels inside it. Over several cards or several processes the step
+stays eager (:func:`graph_mode` says why).
+
 Clutter correlations are linear (zero-extended), as in the JAX module: the
 sharded pipeline matches the single-device ``CpiPipeline`` in
 ``clutter_mode="linear"``. The pulse count is zero-padded to a multiple of
@@ -65,7 +72,7 @@ from __future__ import annotations
 
 import time
 import warnings
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +86,7 @@ from blah2_tpu_torch.dsp.centroid import CentroidFilter
 from blah2_tpu_torch.dsp.cfar import CfarDetections, make_cfar
 from blah2_tpu_torch.dsp.clutter import solve_normal_equations
 from blah2_tpu_torch.dsp.clutter_eca import ecab_residual, edge_mask, nlms_scan
+from blah2_tpu_torch.dsp.graph import StaticCall
 from blah2_tpu_torch.dsp.hamming import segment_fft_size
 from blah2_tpu_torch.dsp.interpolate import PeakInterpolator
 from blah2_tpu_torch.dsp.pipeline import CpiOutputs
@@ -117,6 +125,34 @@ def rows_fit_window(fused_detector, rows: int) -> bool:
     centroid halo (``win_rows`` rows, taken from the neighbouring rank
     alone); always without the fused detector."""
     return fused_detector is None or fused_detector.win_rows <= rows
+
+
+def graph_mode(mesh: RadarMesh, graph="auto") -> Tuple[bool, str]:
+    """Whether the sharded step on ``mesh`` runs as a CUDA graph, and why
+    or why not. ``graph``: "auto" captures where every rank of the mesh
+    lies on one card of one process and runs eagerly elsewhere; False runs
+    eagerly; True captures and raises ``ValueError`` where it cannot."""
+    if graph is False:
+        return False, "graph=False"
+    cards = mesh.distinct_devices()
+    if mesh.process_count > 1:
+        # parallel/collectives.py exchange, parallel/distributed.py.
+        why = (f"the mesh spans {mesh.process_count} processes: the "
+               f"process-group collectives and the halo's group route are "
+               f"host calls")
+    elif len(cards) > 1:
+        # ops/halo.py raises the plan's epoch on the host on every call
+        # and the kernel takes it by value (csrc/halo.cu HaloArgs).
+        why = (f"the ranks lie on {len(cards)} cards: the halo kernel's "
+               f"flag epoch travels from the host in its parameters, so a "
+               f"replay would repeat an old one")
+    elif cards[0].type != "cuda":
+        why = f"the ranks are on {cards[0]}: a CUDA graph needs a card"
+    else:
+        return True, f"every rank on {cards[0]}, one process"
+    if graph == "auto":
+        return False, why
+    raise ValueError(f"graph=True: {why}")
 
 
 def _stack_detections(dets: List[CfarDetections]) -> CfarDetections:
@@ -186,6 +222,11 @@ class ShardedCpiPipeline(nn.Module):
     row-sharded, its row-block mode on every row block of a card in one
     launch; replicated, the whole (B, nr, nc) batch in one call. Off by
     default, as JAX's ``use_pallas_detect``.
+    ``graph``: "auto", True or False (:func:`graph_mode`); ``graph_reason``
+    says why the step is captured or not. ``graphs`` holds the captured
+    steps (:class:`~blah2_tpu_torch.dsp.graph.StaticCall`) by layout;
+    ``before_capture``, where set, is called before each capture (the
+    runtime drains its other device thread there).
     """
 
     def __init__(
@@ -199,10 +240,14 @@ class ShardedCpiPipeline(nn.Module):
         halo_backend: str = "ppermute",
         use_fused_detect: bool = False,
         row_shard="auto",
+        graph: "str | bool" = "auto",
     ):
         super().__init__()
         if halo_backend not in BACKENDS:
             raise ValueError(f"unknown halo backend {halo_backend!r}")
+        self.graph, self.graph_reason = graph_mode(mesh, graph)
+        self.graphs: dict = {}
+        self.before_capture = None
         self.config = config
         self.mesh = mesh
         self.dtype = dtype
@@ -639,9 +684,46 @@ class ShardedCpiPipeline(nn.Module):
     # -- the step --------------------------------------------------------------
     def forward(self, xbp: Ranks, ybp: Ranks) -> CpiOutputs:
         """One step on the per-rank (B / n_cpi, block_len, 2) real/imag
-        planes that :meth:`shard_inputs` makes. Products have the whole
-        batch B as their leading dimension, on the device of this process's
-        first rank."""
+        planes that :meth:`shard_inputs` makes: eagerly, or through the
+        CUDA graph of the planes' layout, captured at its first call (which
+        returns the warm-up's products) and replayed after. Products have
+        the whole batch B as their leading dimension, on the device of this
+        process's first rank."""
+        if not self.graph:
+            return self._step(xbp, ybp)
+        planes = [*xbp, *ybp]
+        key = self._layout([None if t is None else (tuple(t.shape), t.dtype)
+                            for t in planes])
+        call = self.graphs.get(key)
+        if call is None:
+            return self._capture(planes, key)
+        return call(*planes)
+
+    def _layout(self, specs: list) -> tuple:
+        """A graph's key: the planes' (shape, dtype), None at other
+        processes' ranks, and the switches the step reads."""
+        return self.halo_backend, self.nlms_batch_ranks, tuple(specs)
+
+    def _capture(self, planes: list, key: tuple) -> CpiOutputs:
+        """Capture the step on ``planes`` (the x planes, then the y planes,
+        per rank) as the graph of layout ``key``; the warm-up's
+        products."""
+        if self.before_capture is not None:
+            self.before_capture()
+        call = StaticCall(self._flat_step, planes, self.device,
+                          name="sharded step", meshes=(self.mesh,))
+        out = call.capture(*planes)
+        self.graphs[key] = call
+        return out
+
+    def _flat_step(self, *planes) -> CpiOutputs:
+        """:meth:`_step` on the x planes, then the y planes, per rank: the
+        body of the step's graph."""
+        n = self.mesh.size
+        return self._step(list(planes[:n]), list(planes[n:]))
+
+    def _step(self, xbp: Ranks, ybp: Ranks) -> CpiOutputs:
+        """The eager body of :meth:`forward` (JAX's ``_step``)."""
         mesh, home = self.mesh, self.device
         xs = self._per_rank(lambda r, p: complex_of_parts(
             p[..., 0], p[..., 1], self.dtype), xbp)
@@ -744,8 +826,11 @@ class ShardedCpiPipeline(nn.Module):
         key = (dev, first)
         if key not in self._block_rows:
             r = self.nd_rows_pad // self.n_pulse_axis
+            # Copied without a wait: a graph's warm-up fills this cache
+            # under its check for host syncs, and its capture finds it
+            # filled.
             self._block_rows[key] = (
-                torch.tensor(first, device=dev)[:, None, None]
+                torch.tensor(first)[:, None, None].to(dev, non_blocking=True)
                 + torch.arange(r, device=dev))
         return self._block_rows[key]
 
@@ -861,7 +946,9 @@ class ShardedCpiPipeline(nn.Module):
         and imaginary planes on the rank's device, float32 (float64 for a
         complex128 pipeline). Over several processes every process holds
         the same full host batch and places only its own ranks' blocks
-        (None at the others'), as JAX's ``make_array_from_callback``."""
+        (None at the others'), as JAX's ``make_array_from_callback``. Each
+        rank's planes are filled in one pass from its block of the batch,
+        zero past n_samples: no padded or stacked copy of the batch."""
         def host(a):
             if isinstance(a, torch.Tensor):
                 a = a.detach().cpu().numpy()
@@ -874,24 +961,19 @@ class ShardedCpiPipeline(nn.Module):
             raise ValueError(
                 f"batch {xb.shape[0]} not divisible by cpi axis "
                 f"{self.n_cpi_axis}")
-        pad = self.n_pad - xb.shape[1]
-        if pad < 0:
-            xb, yb = xb[:, : self.n_pad], yb[:, : self.n_pad]
-        elif pad > 0:
-            xb = np.pad(xb, ((0, 0), (0, pad)))
-            yb = np.pad(yb, ((0, 0), (0, pad)))
         plane = np.float64 if self.dtype == torch.complex128 else np.float32
         b_loc = xb.shape[0] // self.n_cpi_axis
 
         def place(a):
-            planes = np.stack([a.real, a.imag], axis=-1).astype(plane)
             out = [None] * self.mesh.size
             for r in self.mesh.local_ranks:
                 c, p = self.mesh.coords(r)
-                blk = planes[c * b_loc:(c + 1) * b_loc,
-                             p * self.block_len:(p + 1) * self.block_len]
-                out[r] = torch.from_numpy(np.ascontiguousarray(blk)).to(
-                    self.mesh.devices[r])
+                blk = a[c * b_loc:(c + 1) * b_loc,
+                        p * self.block_len:(p + 1) * self.block_len]
+                planes = np.zeros((b_loc, self.block_len, 2), plane)
+                planes[:, :blk.shape[1], 0] = blk.real
+                planes[:, :blk.shape[1], 1] = blk.imag
+                out[r] = torch.from_numpy(planes).to(self.mesh.devices[r])
             return out
 
         return place(xb), place(yb)
@@ -903,8 +985,11 @@ def calibrate_row_shard(config: Config, mesh: RadarMesh, n_trials: int = 3,
     row-sharded (each rank detects its own rows) or replicated.
 
     Runs one step per layout per trial on random planes (the first call
-    excluded; best of ``n_trials``) and returns ``{"row_shard": bool,
-    "ms_on": .., "ms_off": .., "pipeline": <the winning pipeline>}``
+    excluded; best of ``n_trials``), each layout as it will run: where the
+    pipelines capture (``graph`` in ``pipeline_kw``, :func:`graph_mode`),
+    the first call captures the step and the trials replay it. Returns
+    ``{"row_shard": bool, "ms_on": .., "ms_off": .., "pipeline": <the
+    winning pipeline>}``
     (``ms_on`` None, and replicated, where the row blocks cannot hold the
     fused detector's centroid window: :func:`rows_fit_window`). Each
     process times its local completion by the small fetch that ends each

@@ -66,8 +66,10 @@ def main(argv=None) -> int:
                              "this directory (trace.json)")
     parser.add_argument("--eager", action="store_true",
                         help="run each CPI from eager Python instead of "
-                             "replaying its CUDA graph (the single-device "
-                             "loop on a card; default: the graph)")
+                             "replaying its CUDA graph (on a card: the "
+                             "single-device loop, and the mesh loop where "
+                             "every rank lies on one card of one process; "
+                             "default: the graph)")
     parser.add_argument("--no-defer-fetch", action="store_true",
                         help="fetch each CPI's products synchronously "
                              "instead of one CPI behind (deferred fetch "
@@ -167,6 +169,10 @@ def main(argv=None) -> int:
                            row_shard={"on": True, "off": False}.get(
                                args.row_shard, args.row_shard),
                            device=device)
+    if runtime.sharded is not None:
+        step = "CUDA graph" if runtime.sharded.graph else "eager"
+        print(f"[mesh] step: {step} ({runtime.sharded.graph_reason})",
+              flush=True)
     runtime.install_signal_handlers()
     runtime.start_capture()
     profiler = None

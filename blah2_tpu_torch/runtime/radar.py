@@ -26,11 +26,13 @@ no counterpart on a card attached to its host.
 Mesh mode runs the sharded pipeline over a mesh of logical ranks (a 1 × 4
 mesh fits on one card): the loop gathers one CPI window per rank row, runs
 the batch as one sharded step, and fetches its products behind one event,
-one batch deferred. It runs unchanged when the mesh spans the processes of
-a job (``parallel/distributed.py``): every process runs capture and the same
-CPI schedule, as the JAX runtime does, and the step itself ends with the
-whole batch's products in every process, so the fetch waits on this
-process's events only. With the halo kernel, the fetch also brings its
+one batch deferred. On one card in one process the step is a CUDA graph,
+replayed from the second batch on. The loop runs unchanged
+when the mesh spans the processes of a job (``parallel/distributed.py``;
+the step eager there): every process runs capture and the same CPI
+schedule, as the JAX runtime does, and the step itself ends with the whole
+batch's products in every process, so the fetch waits on this process's
+events only. With the halo kernel, the fetch also brings its
 error words: a wait that timed out raises in every process before the
 batch is emitted.
 """
@@ -130,10 +132,15 @@ class RadarRuntime:
         over several processes needs every process to build the runtime
         and run the same number of CPIs.
 
-        ``graph``: the single-device pipeline's CUDA graphs
-        (:class:`~blah2_tpu_torch.dsp.pipeline.CpiPipeline`): "auto" replays
-        each CPI's graph on a card, False runs the CPI from eager Python.
-        Staged samples are eager either way; the mesh loop is eager.
+        ``graph``: the CUDA graphs of the single-device pipeline
+        (:class:`~blah2_tpu_torch.dsp.pipeline.CpiPipeline`) and of the
+        sharded step (``parallel/sharded.py`` ``graph_mode``): "auto"
+        replays each CPI's graph on a card, and the mesh loop's step where
+        every rank lies on one card of one process (over several cards or
+        processes the step stays eager, and the pipeline's
+        ``graph_reason`` says why); False runs from eager Python; True
+        raises where a graph cannot run. Staged samples are eager either
+        way.
 
         ``device``: where the pipeline runs; ``None`` means the card and
         raises without one (``"cpu"`` runs on the host, as the tests do).
@@ -190,7 +197,7 @@ class RadarRuntime:
             if row_shard == "calibrate":
                 cal = calibrate_row_shard(
                     config, mesh, max_detections=max_detections,
-                    halo_backend=halo_backend)
+                    halo_backend=halo_backend, graph=graph)
                 print(f"[mesh] row_shard calibration: "
                       f"on={cal['ms_on']:.1f} ms off={cal['ms_off']:.1f} ms "
                       f"-> row_shard={cal['row_shard']}", flush=True)
@@ -198,7 +205,9 @@ class RadarRuntime:
             else:
                 self.sharded = ShardedCpiPipeline(
                     config, mesh, max_detections=max_detections,
-                    halo_backend=halo_backend, row_shard=row_shard)
+                    halo_backend=halo_backend, row_shard=row_shard,
+                    graph=graph)
+            self.sharded.before_capture = self._join_staged_warmup
             self.cpi_batch = int(mesh.shape["cpi"])
         # Host copies of the map's axes for serialisation.
         self._delay_axis = amb.delay_axis.cpu().numpy()

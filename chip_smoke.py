@@ -15,7 +15,10 @@ CPI with sub-CPI spectra, the radar runtime on a replay of the default
 config (chunked pinned ingest, deferred fetch, staged samples; the graph
 loop against the eager loop), then the default config through the
 sharded pipeline on 1 x 4 and 2 x 2 meshes of logical ranks on the one
-card, times the paths with CUDA events and the profiler; then the
+card (its step captured as a CUDA graph at its first call and replayed
+after; every algorithm of the sharded path eager against the graph bit for
+bit, both kernels inside the replays against their plain versions), times
+the paths with CUDA events and the profiler; then the
 alternative algorithms (ECA-B, NLMS, OS-CFAR) on the single-device path,
 ECA-B, NLMS and nSub 4 on the sharded path, the runtime in mesh mode and
 over two processes, then each measuring entry point of
@@ -516,8 +519,19 @@ DEEP_LIMITS_DB = {"deeper cells": (0.19, 0.08),
                   "zero-Doppler clutter lags": (0.36, 0.5)}
 
 
+_SCENES: dict = {}
+
+
 def default_scene(cfg, seed=11):
-    """Two injected targets in a 1.5 Msample CPI, as 12-bit int16 quads."""
+    """Two injected targets in a 1.5 Msample CPI, as 12-bit int16 quads
+    (made once per geometry and seed; read-only)."""
+    key = (cfg.n_samples, cfg.capture.fs, seed)
+    if key not in _SCENES:
+        _SCENES[key] = _make_scene(cfg, seed)
+    return _SCENES[key]
+
+
+def _make_scene(cfg, seed):
     import numpy as np
 
     from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
@@ -895,7 +909,8 @@ def det_set(det, i):
 
 
 def gathered_form_check(sp, planes, what):
-    """One step of the row-sharded ``sp`` against the gathered form: the
+    """One eager step of the row-sharded ``sp`` (``_step``, the body its
+    graph replays) against the gathered form: the
     rows of its map gathered and put through the unchanged single-device
     detectors on the card (make_cfar + CentroidFilter + PeakInterpolator,
     or FusedDetector's map mode): the dB map, the masks and the
@@ -925,7 +940,7 @@ def gathered_form_check(sp, planes, what):
 
     sp._detect_rows, sharded.all_gather = rows, gather
     try:
-        out = sp(*planes)
+        out = sp._step(*planes)
     finally:
         del sp._detect_rows
         sharded.all_gather = collectives.all_gather
@@ -1055,7 +1070,8 @@ def phase_sharded(dev, root):
 
         # The unfused chain on the same batch; both against the gathered
         # form.
-        sp_u = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas")
+        sp_u = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas",
+                                  graph=False)
         u = sp_u(*sp_u.shard_inputs(xb[:b], yb[:b]))
         gathered = {}
         for name, pipe in (("fused", sp), ("unfused", sp_u)):
@@ -1072,7 +1088,7 @@ def phase_sharded(dev, root):
 
         # complex128 against the single-device linear pipeline.
         sp128 = ShardedCpiPipeline(cfg, mesh, dtype=torch.complex128,
-                                   halo_backend="pallas")
+                                   halo_backend="pallas", graph=False)
         o128 = sp128(*sp128.shard_inputs(xb[:b], yb[:b]))
         d128 = max(float((o128.db_map[i] - refs[i].db_map).abs().max())
                    for i in range(b))
@@ -1101,10 +1117,12 @@ def phase_sharded(dev, root):
 
 def phase_sharded_timing(dev, root, card):
     """The sharded CPI on a 1 x 4 mesh on the card (complex64, halo kernel,
-    fused detector, row-sharded): ms per step by CUDA events from planes on
-    the device to detections, peak memory, and from the profiler the device
-    busy time, the kernels per CPI, the halo kernel's device time and
-    launches per shift and the detect kernel's (row-block mode) per step;
+    fused detector, row-sharded), its step replayed as a CUDA graph: ms
+    per step by CUDA events from planes on the device to detections, peak
+    memory, and from the profiler the device busy time, the kernels per
+    CPI, the halo kernel's device time and launches per shift (counted on
+    the replays, against the shifts they log) and the detect kernel's
+    (row-block mode) per step;
     then the main path's largest shift (409 complex64 samples from the
     head of each rank's block, the edge zero-filled) through the halo
     kernel, its plain twin and tensor copies of the same payload (events in
@@ -1129,6 +1147,7 @@ def phase_sharded_timing(dev, root, card):
     mesh = one_card_mesh(dev, (1, 4))
     sp = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas",
                             use_fused_detect=True)
+    check(sp.graph, f"the 1 x 4 step is not captured: {sp.graph_reason}")
     planes = sp.shard_inputs(quads[:, 0] + 1j * quads[:, 1],
                              quads[:, 2] + 1j * quads[:, 3])
     torch.cuda.reset_peak_memory_stats()
@@ -1797,6 +1816,16 @@ def same_bits(a, b):
         for x, y in zip(fa, fb))
 
 
+def graph_scratch(call, rows=False):
+    """The detect kernel's scratch (its row-block mode's, with ``rows``) on
+    a graph's capture stream, which the graph's launches use; None where
+    the kernel never ran there."""
+    from blah2_tpu_torch.ops.detect import detect
+
+    return detect.scratch(call.device.index, call.stream.cuda_stream,
+                          rows=rows)
+
+
 def graph_case(dev, cfg, name, timed=GRAPH_TIMED, n_prof=None):
     """One config's CPI through ``call_quad12`` eagerly and as a CUDA graph
     on the card: the capture's times and nodes; on three different CPIs the
@@ -1842,14 +1871,15 @@ def graph_case(dev, cfg, name, timed=GRAPH_TIMED, n_prof=None):
     check(same_bits(first, want[0]), f"{name}: the warm-up's products "
           f"differ from the eager call's")
     per_replay = 0 if name == "os" else 1
-    check(call.launches == (per_replay, 0),
-          f"{name}: the graph holds {call.launches} detect launches")
+    check(call.counts == ({"detect": 1} if per_replay else {}),
+          f"{name}: the graph holds {call.counts}")
 
     outs, launches = [], detect.launches
     for p in packed:
         outs.append(graph.call_quad12(p))
-        if call.scratch is not None:
-            zero = int(call.scratch[:1].abs().sum())
+        scratch = graph_scratch(call)
+        if scratch is not None:
+            zero = int(scratch[:1].abs().sum())
             check(zero == 0, f"{name}: ticket counter {zero} after a replay")
         if len(outs) == 1:
             kept = tree_map(lambda t: t.cpu(), outs[0])
@@ -2101,7 +2131,8 @@ def phase_sharded_alternatives(dev, root, card):
                   f"sharded {name}: backends' detections differ on {k}")
         ok, _ = found(cpi_of(p, 0), targets, sp.ambiguity.doppler_resolution)
         # The kernel against the unfused chain on the same planes.
-        sp_u = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas")
+        sp_u = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas",
+                                  graph=False)
         u = sp_u(*sp_u.shard_inputs(x, y))
         d_fused = max(float((u.db_map - p.db_map).abs().max()),
                       float((u.noise_power - p.noise_power).abs().max()))
@@ -2118,7 +2149,7 @@ def phase_sharded_alternatives(dev, root, card):
         for where, m in (("card", mesh), ("cpu", make_radar_mesh(
                 1, 4, devices=["cpu"] * 4))):
             sp128 = ShardedCpiPipeline(cfg, m, dtype=torch.complex128,
-                                       halo_backend="pallas")
+                                       halo_backend="pallas", graph=False)
             s128[where] = sp128(*sp128.shard_inputs(x, y))
         d128 = float((s128["card"].db_map.cpu()
                       - s128["cpu"].db_map).abs().max())
@@ -2147,6 +2178,321 @@ def phase_sharded_alternatives(dev, root, card):
     return results
 
 
+# The sharded step's algorithms as CUDA graphs (phase_sharded_graph): the
+# alternative of the default config (None: the default), the mesh of
+# logical ranks on the card, the pipeline's settings (halo kernel always).
+SHARDED_GRAPH_CASES = {
+    "wiener": (None, (1, 4), {"use_fused_detect": True}),
+    "wiener-replicated": (None, (2, 2), {"row_shard": False}),
+    "eca-b": (SHARDED_ALTERNATIVES["eca-b"], (1, 4),
+              {"use_fused_detect": True}),
+    "nlms": (SHARDED_ALTERNATIVES["nlms"], (1, 4),
+             {"use_fused_detect": True}),
+    "nlms-ranks-in-turn": (SHARDED_ALTERNATIVES["nlms"], (1, 4),
+                           {"use_fused_detect": True,
+                            "nlms_batch_ranks": False}),
+    "nsub4": (SHARDED_ALTERNATIVES["nsub4"], (1, 4),
+              {"use_fused_detect": True}),
+    "os": (ALTERNATIVES["os"], (1, 4), {}),
+}
+
+
+def scene_batches(cfg, b):
+    """Three different batches of ``b`` CPIs: (x, y) complex (b, n) arrays
+    of default_scene's CPIs of GRAPH_SEEDS, turned by one a batch."""
+    import numpy as np
+
+    quads = [default_scene(cfg, seed)[0] for seed in GRAPH_SEEDS]
+    out = []
+    for k in range(len(quads)):
+        qs = [quads[(k + j) % len(quads)] for j in range(b)]
+        out.append((np.stack([q[:, 0] + 1j * q[:, 1] for q in qs]),
+                    np.stack([q[:, 2] + 1j * q[:, 3] for q in qs])))
+    return out
+
+
+def storage_span(t):
+    """The bytes of ``t``'s storage: (first address, one past the last)."""
+    lo = t.untyped_storage().data_ptr()
+    return lo, lo + t.untyped_storage().nbytes()
+
+
+class KernelProbe:
+    """While open, keeps each call of the halo kernel and of the detect
+    kernel's row-block mode made under a graph's capture: its inputs and
+    outputs, tensors of the graph's pool. Held, the capture gives their
+    memory to nothing else, so after each replay they hold that replay's
+    values: :meth:`errors` holds the kernels' outputs against their plain
+    versions on those inputs."""
+
+    def __enter__(self):
+        import torch
+
+        from blah2_tpu_torch.ops.detect import DetectKernel
+        from blah2_tpu_torch.ops.halo import HaloKernel
+
+        self.halo, self.rows = [], []
+        self._saved = (HaloKernel.__call__, DetectKernel.rows)
+        halo_call, rows_call = self._saved
+        probe = self
+
+        def halo(kernel, bufs, mesh, axis="pulse", to_left=True,
+                 collective_id=0, mask_edge=False):
+            out = halo_call(kernel, bufs, mesh, axis, to_left,
+                            collective_id, mask_edge)
+            if torch.cuda.is_current_stream_capturing():
+                probe.halo.append((list(bufs), mesh, axis, to_left,
+                                   mask_edge, out))
+            return out
+
+        def rows(kernel, blocks, first_rows, *args):
+            out = rows_call(kernel, blocks, first_rows, *args)
+            if torch.cuda.is_current_stream_capturing():
+                probe.rows.append((list(blocks), list(first_rows), args,
+                                   out))
+            return out
+
+        HaloKernel.__call__, DetectKernel.rows = halo, rows
+        return self
+
+    def __exit__(self, *exc):
+        from blah2_tpu_torch.ops.detect import DetectKernel
+        from blah2_tpu_torch.ops.halo import HaloKernel
+
+        HaloKernel.__call__, DetectKernel.rows = self._saved
+
+    def errors(self, what):
+        """After a replay: each halo call's outputs the bits of
+        halo_permute_plain's on its inputs; each row-block call's keep and
+        block maxima equal to detect_rows_plain's, its dB within 1e-4 (the
+        phantom rows -inf in both), its block sums within 1e-6 relative.
+        Returns the largest halo and row-block differences."""
+        import torch
+
+        from blah2_tpu_torch.ops.detect import detect_rows_plain
+        from blah2_tpu_torch.ops.halo import halo_permute_plain
+
+        halo_err = 0.0
+        for bufs, mesh, axis, to_left, mask_edge, out in self.halo:
+            want = halo_permute_plain(bufs, mesh, axis, to_left, mask_edge)
+            for r in mesh.local_ranks:
+                check(torch.equal(bits(out[r]), bits(want[r])),
+                      f"{what}: the halo kernel in the replay differs from "
+                      f"its plain version at rank {r}")
+                halo_err = max(halo_err, float(
+                    (out[r] - want[r]).abs().max()))
+        rows_err = 0.0
+        for blocks, first, args, got in self.rows:
+            want = detect_rows_plain(
+                torch.stack([torch.cat(b, dim=-2) for b in blocks]), first,
+                *args)
+            inside = torch.isfinite(want.db)
+            check(torch.equal(got.keep, want.keep)
+                  and torch.equal(got.maxes, want.maxes)
+                  and torch.equal(torch.isneginf(got.db),
+                                  torch.isneginf(want.db)),
+                  f"{what}: the row-block mode in the replay differs from "
+                  f"detect_rows_plain (keep, maxima or phantom rows)")
+            d_db = float((got.db - want.db)[inside].abs().max())
+            rel = float(((got.sums.double() - want.sums.double()).abs()
+                         / want.sums.double().abs().clamp(min=1.0)).max())
+            check(d_db <= 1e-4 and rel <= 1e-6, f"{what}: the row-block "
+                  f"mode in the replay: dB {d_db}, block sums {rel}")
+            rows_err = max(rows_err, d_db)
+        return halo_err, rows_err
+
+
+def sharded_graph_case(dev, root, name, timed=GRAPH_TIMED, n_prof=None,
+                       probe=False):
+    """One algorithm of the sharded step (SHARDED_GRAPH_CASES) eagerly and
+    as a CUDA graph on logical ranks of the card: the capture's times and
+    nodes; on three different batches the replays' products bit for bit
+    the eager step's, an earlier product unchanged by later replays, the
+    halo and detect kernels' launches and pairs counted once a replay (the
+    capture holding an eager step's counts), the row-block mode's ticket
+    counters zero after each replay, no output of the graph in its input
+    buffers; with ``probe``, both kernels inside each replay against their
+    plain versions on the replay's own inputs (KernelProbe); the
+    profiler's records of ``n_prof`` replays (each kernel's launches
+    exact, through profiled_whole; with ``probe`` the eager step's too),
+    busy ms and idle share; ms per step by events on each path, and each
+    path's peak memory."""
+    import contextlib
+
+    import torch
+
+    from blah2_tpu_torch.device import tree_map
+    from blah2_tpu_torch.dsp import graph as graph_mod
+    from blah2_tpu_torch.parallel.collectives import count_bytes
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    alternative, shape, settings = SHARDED_GRAPH_CASES[name]
+    cfg = alternative_config(root, alternative or ("data", {}))
+    mesh = one_card_mesh(dev, shape)
+    kw = dict(settings)
+    batch_ranks = kw.pop("nlms_batch_ranks", True)
+    nlms = name.startswith("nlms")
+    # A sharded NLMS replay is several thousand kernel records: one a
+    # window.
+    n_prof = n_prof or (1 if nlms else 3)
+    pipes = {}
+    for graph in (False, True):
+        sp = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas",
+                                graph=graph, **kw)
+        sp.nlms_batch_ranks = batch_ranks
+        pipes[graph] = sp
+    eager, pipe = pipes[False], pipes[True]
+    planes = [eager.shard_inputs(x, y)
+              for x, y in scene_batches(cfg, shape[0])]
+    mib = 2 ** 20
+
+    def moved(before):
+        return {k: v - before[k] for k, v in graph_mod.counts().items()
+                if v != before[k]}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    want = []
+    for p in planes:
+        before = graph_mod.counts()
+        want.append(eager(*p))
+        step = moved(before)
+    torch.cuda.synchronize()
+    peak_eager = (torch.cuda.max_memory_allocated() - base) / mib
+    check(not same_bits(want[0], want[1]), f"sharded {name}: two batches, "
+          f"same bits")
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with KernelProbe() if probe else contextlib.nullcontext() as seen:
+        first = pipe(*planes[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    held_mib = (torch.cuda.memory_allocated() - base) / mib
+    (call,) = pipe.graphs.values()
+    check(same_bits(first, want[0]), f"sharded {name}: the warm-up's "
+          f"products differ from the eager step's")
+    check(call.counts == step, f"sharded {name}: the graph holds "
+          f"{call.counts}, an eager step counts {step}")
+    # No output of the graph, nor of a halo inside it, in its inputs.
+    inputs = [storage_span(b) for b in call.inputs if b is not None]
+    outputs = [t for t in product_leaves(call.outputs) if t is not None]
+    if probe:
+        outputs += [o for *_, out in seen.halo for o in out
+                    if o is not None]
+    for t in outputs:
+        lo, hi = storage_span(t)
+        check(all(hi <= a or lo >= b for a, b in inputs),
+              f"sharded {name}: a graph output lies in its input buffers")
+
+    n_blocks = len(mesh.local_ranks) * (shape[0] // mesh.shape["cpi"])
+    outs, errs = [], (0.0, 0.0)
+    before = graph_mod.counts()
+    for j, p in enumerate(planes):
+        outs.append(pipe(*p))
+        torch.cuda.synchronize()
+        if probe:
+            errs = tuple(map(max, errs, seen.errors(
+                f"sharded {name}, batch {j}")))
+        scratch = graph_scratch(call, rows=True)
+        if scratch is not None:
+            zero = int(scratch[:n_blocks].abs().sum())
+            check(zero == 0, f"sharded {name}: row-block ticket counters "
+                  f"{zero} after a replay")
+        if j == 0:
+            kept = tree_map(lambda t: t.cpu(), outs[0])
+    replayed = moved(before)
+    check(replayed == {k: 3 * v for k, v in step.items()},
+          f"sharded {name}: {replayed} counted in 3 replays, an eager step "
+          f"{step}")
+    for j, (got, ref) in enumerate(zip(outs, want)):
+        check(same_bits(got, ref), f"sharded {name}: batch {j}: the "
+              f"replay's products differ from the eager step's")
+    check(same_bits(outs[0], kept), f"sharded {name}: a later replay "
+          f"changed an earlier step's products")
+    peak_graph = (torch.cuda.max_memory_allocated() - base) / mib
+
+    def window(sp):
+        # The halo and detect launches the profiler saw, exactly those the
+        # wrappers counted; the halo's those of n_prof eager steps, one a
+        # shift the collectives logged.
+        before = graph_mod.counts()
+        with count_bytes(mesh) as ops:
+            by_name = device_profile(lambda: sp(*planes[1]), n_prof)
+        got = moved(before)
+        shifts = sum(op.kind == "permute" for op in ops)
+        short = []
+        for what, key in (("halo launches", "halo_permute"),
+                          ("detect launches", "detect_")):
+            seen_n = sum(c for k, (_, c) in by_name.items() if key in k)
+            short += shortfall(seen_n, got.get(what.split()[0], 0), what)
+        return by_name, short + shortfall(
+            got.get("halo", 0), n_prof * step.get("halo", 0),
+            "halo launches counted") + shortfall(
+            got.get("halo", 0), shifts, "halo launches for the shifts")
+
+    by_name = profiled_whole(lambda: window(pipe), f"sharded graph {name}")
+    if probe:
+        # The eager step, the path over several cards or processes and
+        # under --eager, held to the same exact counts.
+        eager_prof = profiled_whole(lambda: window(eager),
+                                    f"sharded eager {name}")
+    busy_ms = sum(t for t, _ in by_name.values()) / n_prof / 1e3
+    n_g, w_g = timed["graph_nlms" if nlms else "graph"]
+    n_e, w_e = timed["eager_nlms" if nlms else "eager"]
+    t_graph = event_times(lambda: pipe(*planes[2]), n_g, w_g)
+    t_eager = event_times(lambda: eager(*planes[2]), n_e, w_e)
+    line = {
+        "case": name, "mesh": f"{shape[0]}x{shape[1]}",
+        "row_shard": pipe._row_shard,
+        "fused": pipe.fused_detector is not None,
+        "nlms_batch_ranks": batch_ranks if nlms else None,
+        "graph_reason": pipe.graph_reason,
+        "ms_per_step_graph": t_graph, "ms_per_step_eager": t_eager,
+        "steps_graph": n_g, "steps_eager": n_e,
+        "device_busy_ms_per_step": busy_ms,
+        "idle_share_graph": 1.0 - busy_ms / t_graph["median"],
+        "idle_share_eager": 1.0 - busy_ms / t_eager["median"],
+        "kernels_per_step": sum(c for _, c in by_name.values()) / n_prof,
+        "graph_nodes": graph_nodes(call.graph), **call.stats,
+        "first_call_s": first_s, "per_replay": call.counts,
+        "peak_mib_eager": peak_eager, "peak_mib_graph": peak_graph,
+        "held_mib_graph": held_mib,
+        "detections": outs[0].detections.count.tolist(),
+        "bits": "equal on 3 batches of seeds " + ", ".join(
+            map(str, GRAPH_SEEDS)),
+    }
+    if probe:
+        line.update(eager_profiled={
+            "steps": n_prof, "kernels_per_step": sum(
+                c for _, c in eager_prof.values()) / n_prof,
+            "device_busy_ms_per_step": sum(
+                t for t, _ in eager_prof.values()) / n_prof / 1e3})
+        line.update(kernels_in_replay={
+            "halo_calls": len(seen.halo), "row_block_calls": len(seen.rows),
+            "halo_max_abs_err": errs[0], "rows_max_abs_err": errs[1]})
+    check(all(math.isfinite(v) for v in (busy_ms, t_graph["median"])),
+          f"sharded {name}: timing")
+    return line
+
+
+def phase_sharded_graph(dev, root, card):
+    """The sharded step as a CUDA graph for every algorithm of the sharded
+    path (sharded_graph_case each; the default's both kernels held
+    against their plain versions inside its replays). Prints one
+    ``sharded_graph {...}`` line a case."""
+    lines = {}
+    for name in SHARDED_GRAPH_CASES:
+        t0 = time.perf_counter()
+        line = sharded_graph_case(dev, root, name, probe=name == "wiener")
+        line.update(wall_s=time.perf_counter() - t0, card=card)
+        print("sharded_graph " + json.dumps(line))
+        lines[name] = line
+    return lines
+
+
 RUNTIME_MESH_CPIS = 10
 # Limits in dB of the mesh runtime's complex64 maps against the
 # single-device pipeline's complex64 maps of the same windows in linear
@@ -2167,8 +2513,11 @@ def phase_runtime_mesh(dev, root, card, tmp):
     each map against the single-device pipeline's map of the same window in
     linear clutter mode (the sharded path's function; the single-device
     runtime's circular correlations differ from it by O(n_bins/n), which is
-    printed), and the cpi and latency medians. Returns the halo launches,
-    the printed line, the replay's file and the map products."""
+    printed), and the cpi and latency medians; the loop replays the
+    step's CUDA graph from its second batch on, and the eager loop on the
+    same windows gives the same bits CPI by CPI. Returns the halo launches, the printed line, the
+    replay's file and the map products."""
+    import numpy as np
     import torch
 
     from blah2_tpu_torch.capture.source import Source
@@ -2219,6 +2568,8 @@ def phase_runtime_mesh(dev, root, card, tmp):
         dev, (1, 4)), halo_backend="pallas")
     stub.rt = rt
     check(rt.cpi_batch == 1 and rt.sharded is not None, "mesh runtime")
+    check(rt.sharded.graph, f"the mesh runtime's step is not captured: "
+          f"{rt.sharded.graph_reason}")
     outs = keep_outputs(rt)
     rt.start_capture()
     # The mesh runtime's main path: counts at 0 just before, read after.
@@ -2228,6 +2579,23 @@ def phase_runtime_mesh(dev, root, card, tmp):
     launches = halo_permute.launches
 
     n = RUNTIME_MESH_CPIS
+    # The eager loop on the same windows: the same bits, CPI by CPI.
+    eager_stub = StubApi()
+    eager = RadarRuntime(cfg, api_server=eager_stub, mesh=one_card_mesh(
+        dev, (1, 4)), halo_backend="pallas", graph=False)
+    eager_stub.rt = eager
+    eager_outs = keep_outputs(eager)
+    eager.start_capture()
+    eager_wall = run_bounded(eager, n, 300.0)
+    check(len(eager_outs) == n, f"{len(eager_outs)} eager mesh CPIs")
+    for j, (a, b) in enumerate(zip(outs, eager_outs)):
+        check(all((x is None and y is None) or np.array_equal(x, y)
+                  for x, y in zip(product_leaves(a), product_leaves(b),
+                                  strict=True)),
+              f"mesh runtime CPI {j}: the graph loop's products differ "
+              f"from the eager loop's")
+    (call,) = rt.sharded.graphs.values()
+    replays = call.graph is not None and call.replays == n - 1
     maps = [json.loads(v) for p, v, _ in stub.log if p == "map"]
     check(len(maps) == n == len(outs), f"{len(maps)} map products for {n} "
           f"CPIs")
@@ -2257,12 +2625,22 @@ def phase_runtime_mesh(dev, root, card, tmp):
     for doc in docs:
         missing = TIMING_KEYS - set(doc)
         check(not missing, f"mesh timing doc without {sorted(missing)}")
-    line = {"cpis": n, "wall_s": wall,
+    check(replays, f"mesh runtime: {call.replays} replays of the step's "
+          f"graph in {n} CPIs")
+    eager_docs = [json.loads(v) for p, v, _ in eager_stub.log
+                  if p == "timing"]
+    line = {"cpis": n, "wall_s": wall, "eager_wall_s": eager_wall,
             "cpi_ms_median": statistics.median(d["cpi"] for d in docs),
             "latency_ms_median": statistics.median(d["latency"]
                                                    for d in docs),
+            "eager_cpi_ms_median": statistics.median(d["cpi"]
+                                                     for d in eager_docs),
             "halo_launches": launches, "vs_linear_single_db": worst,
             "vs_single_runtime_db": circular,
+            "graph": {"capture_ms": call.stats["capture_ms"],
+                      "instantiate_ms": call.stats["instantiate_ms"],
+                      "replays": call.replays,
+                      "bits": "equal to the eager loop's, every CPI"},
             "card": card}
     print("runtime_mesh " + json.dumps(line))
     return launches, line, fname, maps
@@ -2340,6 +2718,12 @@ def worker_step(args) -> int:
         4 // distributed.process_count()))
     sp = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas",
                             use_fused_detect=True)
+    # A mesh over processes stays eager, says why, and refuses a graph.
+    try:
+        ShardedCpiPipeline(cfg, mesh, graph=True)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
     planes = sp.shard_inputs(quads[:, 0] + 1j * quads[:, 1],
                              quads[:, 2] + 1j * quads[:, 3])
     sp(*planes)  # the plans and the kernels' first use
@@ -2356,7 +2740,8 @@ def worker_step(args) -> int:
     counts = {"halo": halo_permute.launches, "detect": detect.launches,
               "rows": detect.row_launches,
               "pairs": dict(halo_permute.pairs), "ms": ms,
-              "backend": distributed.job().backend}
+              "backend": distributed.job().backend, "graph": sp.graph,
+              "graph_reason": sp.graph_reason, "graph_true": refused}
     halo_permute.check()
     every = distributed.all_gather_object(counts)
     if distributed.process_index() == 0:
@@ -2419,7 +2804,8 @@ def phase_multiprocess(dev, root, card):
     cfg = load_config(os.path.join(root, "config", "config.yml"))
     quads, targets = default_scene(cfg)
     sp = ShardedCpiPipeline(cfg, one_card_mesh(dev, (1, 4)),
-                            halo_backend="pallas", use_fused_detect=True)
+                            halo_backend="pallas", use_fused_detect=True,
+                            graph=False)
     ref = sp(*sp.shard_inputs(quads[:, 0] + 1j * quads[:, 1],
                               quads[:, 2] + 1j * quads[:, 3]))
     want_db = ref.db_map.cpu().numpy()
@@ -2438,6 +2824,10 @@ def phase_multiprocess(dev, root, card):
     shifts = 6 * MP_STEPS
     check([c["backend"] for c in every] == ["gloo"] * MP_PROCESSES,
           f"backends {[c['backend'] for c in every]}")
+    check(not any(c["graph"] for c in every)
+          and all(c["graph_true"] for c in every),
+          f"a mesh over processes: graph {[c['graph'] for c in every]}, "
+          f"graph=True refused with {[c['graph_true'] for c in every]}")
     check([c["halo"] for c in every] == [shifts] * MP_PROCESSES,
           f"halo launches {[c['halo'] for c in every]}, want {shifts} "
           f"in each process")
@@ -2454,7 +2844,8 @@ def phase_multiprocess(dev, root, card):
             "detect_launches": [c["detect"] for c in every],
             "pairs": pairs, "map_max_abs_diff_db": d_map,
             "step_ms": [c["ms"] for c in every], "wall_s": wall,
-            "card": card}
+            "step": "eager: " + every[0]["graph_reason"],
+            "graph_true": every[0]["graph_true"], "card": card}
     print("multiprocess " + json.dumps(line))
     return line
 
@@ -2963,6 +3354,7 @@ def main() -> int:
     halo_launches, sharded_detect, _ = timed("sharded", phase_sharded, dev,
                                              ROOT)
     sh = timed("sharded_timing", phase_sharded_timing, dev, ROOT, card)
+    sh_graph = timed("sharded_graph", phase_sharded_graph, dev, ROOT, card)
     alt = timed("alternatives", phase_alternatives, dev, ROOT, card)
     sh_alt = timed("sharded_alternatives", phase_sharded_alternatives, dev,
                    ROOT, card)
@@ -2978,6 +3370,7 @@ def main() -> int:
     dry = timed("dryrun", phase_dryrun, card, visible)
     proj = timed("projection", phase_projection, dev, card)
 
+    graph_kernels = sh_graph["wiener"]["kernels_in_replay"]
     kern_ms = min(timing["detect_ms"])
     plain_ms = min(timing["detect_plain_ms"])
     print(f"default config on {card}: {timing['cpi_ms_median']:.3f} ms/CPI "
@@ -3020,6 +3413,16 @@ def main() -> int:
           f"{sh['rows_device_ms'] * 1e3:.2f} us device, bound "
           f"{sh['rows_bound_ms'] * 1e3:.3f} us; calibrate_row_shard picks "
           f"row_shard={sh['calibrate_row_shard']['row_shard']}")
+    for k, v in sh_graph.items():
+        print(f"sharded graph {k}, {v['mesh']} ranks on {card}: "
+              f"{v['ms_per_step_graph']['median']:.3f} ms/step replayed, "
+              f"{v['ms_per_step_eager']['median']:.3f} eager (medians of "
+              f"{v['steps_graph']} and {v['steps_eager']}); device busy "
+              f"{v['device_busy_ms_per_step']:.3f} ms, idle "
+              f"{v['idle_share_graph']:.3f} / {v['idle_share_eager']:.3f}; "
+              f"capture {v['capture_ms']:.1f} ms, instantiate "
+              f"{v['instantiate_ms']:.1f} ms, {v['graph_nodes']} nodes; "
+              f"{v['graph_reason']}")
     for k, v in alt.items():
         print(f"{k}, default config on {card}: "
               f"{v['ms_per_cpi']['median']:.3f} ms/CPI median of 10 "
@@ -3088,8 +3491,11 @@ def main() -> int:
             "sharded_step": sharded_detect,
             **{f"sharded_{k}_step": v["detect_launches_per_step"]
                for k, v in sh_alt.items()},
+            **{f"sharded_graph_{k}_per_replay":
+               v["per_replay"].get("detect_rows", 0)
+               for k, v in sh_graph.items()},
             "multiprocess_step": mp["detect_launches"]},
-        "max_abs_err": rows_err,
+        "max_abs_err": max(rows_err, graph_kernels["rows_max_abs_err"]),
         "ms": min(sh["rows_ms"]),
         "plain_ms": min(sh["rows_plain_ms"]),
         "bound_ms": sh["rows_bound_ms"],
@@ -3108,6 +3514,8 @@ def main() -> int:
             "sharded_step": halo_launches,
             **{f"sharded_{k}_step": v["halo_launches_per_step"]
                for k, v in sh_alt.items()},
+            **{f"sharded_graph_{k}_per_replay": v["per_replay"].get("halo", 0)
+               for k, v in sh_graph.items()},
             "runtime_mesh": mesh_launches,
             "multiprocess_step": mp["halo_launches"],
             "runtime_multiprocess": mp_rt["halo_launches"],
@@ -3116,7 +3524,7 @@ def main() -> int:
             "dryrun_by_cell": dry["halo_launches_by_cell"]},
         "pairs_by_route": {"multiprocess_step": mp["pairs"],
                            "runtime_multiprocess": mp_rt["pairs"]},
-        "max_abs_err": halo_err,
+        "max_abs_err": max(halo_err, graph_kernels["halo_max_abs_err"]),
         "ms": min(sh["shift_ms"]),
         "plain_ms": min(sh["shift_plain_ms"]),
         "bound_ms": sh["shift_bound_ms"],

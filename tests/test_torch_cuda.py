@@ -315,7 +315,9 @@ def test_halo_kernel_two_cards(card):
 def test_sharded_pipeline_across_cards(card):
     """A 1 x n mesh over n >= 2 cards (up to 4): the halo kernel writes
     into the peer cards' buffers, and the products equal the ppermute
-    backend's, and a one-card mesh's within float32 rounding."""
+    backend's, and a one-card mesh's within float32 rounding. Over the
+    cards the step stays eager and says why, and refuses a graph; on the
+    one card it is captured."""
     from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
     from blah2_tpu_torch.config import config_from_dict
     from blah2_tpu_torch.ops.halo import halo_permute
@@ -347,6 +349,11 @@ def test_sharded_pipeline_across_cards(card):
                                     1, n, devices=[card] * n), "pallas")):
         sp = ShardedCpiPipeline(cfg, mesh, halo_backend=backend,
                                 use_fused_detect=True)
+        assert sp.graph is (name == "one"), sp.graph_reason
+        if name != "one":
+            assert sp.graph_reason.startswith(f"the ranks lie on {n} cards")
+            with pytest.raises(ValueError, match="cards"):
+                ShardedCpiPipeline(cfg, mesh, graph=True)
         launches = halo_permute.launches
         outs[name] = sp(*sp.shard_inputs(x, y))
         for i in range(n):
@@ -878,6 +885,13 @@ def _graph_config(name):
     return config_from_dict(d)
 
 
+def _scratch(call, rows=False):
+    """The detect kernel's scratch on a StaticCall's capture stream (its
+    row-block mode's, with ``rows``): what the graph's launches use."""
+    return tdetect.detect.scratch(call.device.index,
+                                  call.stream.cuda_stream, rows=rows)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["default", "nsub2", *sorted(_ALTERNATIVES)])
 def test_graph_replays_give_the_eager_bits_on_card(card, name):
@@ -937,9 +951,9 @@ def test_graph_replays_give_the_eager_bits_on_card(card, name):
         assert not torch.equal(outs[0].db_map, outs[1].db_map)
     assert len(pipe.graphs) == 2
     for call in pipe.graphs.values():
-        assert call.launches == (per_replay, 0)
+        assert call.counts == ({"detect": 1} if per_replay else {})
         if per_replay:
-            assert int(call.scratch[:1].abs().sum()) == 0
+            assert int(_scratch(call)[:1].abs().sum()) == 0
 
 
 @pytest.mark.cuda
@@ -958,7 +972,7 @@ def test_detect_over_48kb_replays_in_a_graph(card):
     call = StaticCall(lambda m: tdetect.detect(m, *kw), [zc], card,
                       name="wide")
     call.capture(zc)
-    assert call.launches == (1, 0)
+    assert call.counts == {"detect": 1}
     for m in (zc, zc * 1.5):
         launches = tdetect.detect.launches
         got = call(m)
@@ -968,4 +982,191 @@ def test_detect_over_48kb_replays_in_a_graph(card):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         assert int(got.keep.sum()) >= 1
-        assert int(call.scratch[:1].abs().sum()) == 0
+        assert int(_scratch(call)[:1].abs().sum()) == 0
+
+
+#: The sharded path's algorithms on the card: (config changes, pipeline
+#: settings), at the scene of tests/test_torch_sharded.py.
+_SHARDED_GRAPH = {
+    "wiener-fused": ({}, {"use_fused_detect": True}),
+    "wiener-replicated": ({}, {"row_shard": False}),
+    "eca-b": ({"clutter": {"filter": "eca-b"}}, {"use_fused_detect": True}),
+    "nlms": ({"clutter": {"filter": "nlms"}}, {"use_fused_detect": True}),
+    "nlms-ranks-in-turn": ({"clutter": {"filter": "nlms"}},
+                           {"use_fused_detect": True,
+                            "nlms_batch_ranks": False}),
+    "nsub4": ({"spectrum": {"nSub": 4}}, {"use_fused_detect": True}),
+    "os": ({"detection": {"cfar": "os"}}, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+@pytest.mark.parametrize("name", sorted(_SHARDED_GRAPH))
+def test_sharded_graph_replays_give_the_eager_bits_on_card(card, name,
+                                                           shape):
+    """The sharded step captured at its first call on logical ranks of one
+    card and replayed on three different batches: each product the eager
+    step's bits, an earlier product unchanged by a later replay, the halo
+    kernel's launches and the detect kernel's counted once a replay, the
+    row-block mode's ticket counters zero after each, no output of the
+    graph in its input buffers."""
+    import copy
+
+    from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
+    from blah2_tpu_torch.config import config_from_dict
+    from blah2_tpu_torch.dsp import graph as graph_mod
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    d = {"capture": {"fs": 80_000, "fc": 204_640_000},
+         "process": {
+             "data": {"cpi": 0.2},
+             "ambiguity": {"delayMin": -5, "delayMax": 60,
+                           "dopplerMin": -100, "dopplerMax": 100},
+             "clutter": {"enable": True, "delayMin": -5, "delayMax": 30},
+             "detection": {"enable": True, "pfa": 1e-5, "nGuard": 2,
+                           "nTrain": 6, "minDelay": 5, "minDoppler": 15,
+                           "nCentroid": 6}}}
+    changes, kw = _SHARDED_GRAPH[name]
+    d = copy.deepcopy(d)
+    for stage, kv in changes.items():
+        d["process"].setdefault(stage, {}).update(kv)
+    cfg = config_from_dict(d)
+    kw = dict(kw)
+    batch_ranks = kw.pop("nlms_batch_ranks", True)
+    mesh = make_radar_mesh(*shape, devices=[card] * 4)
+    pipes = {}
+    for graph in (False, "auto"):
+        sp = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas", graph=graph,
+                                **kw)
+        sp.nlms_batch_ranks = batch_ranks
+        pipes[graph] = sp
+    eager, pipe = pipes[False], pipes["auto"]
+    assert pipe.graph and not eager.graph, pipe.graph_reason
+    batches = []
+    for seed in (7, 8, 9):
+        xs, ys = [], []
+        for k in range(shape[0]):
+            x, y = synthetic_cpi(cfg.n_samples, cfg.capture.fs,
+                                 [TargetSpec(20, -44.0, 0.1)],
+                                 clutter_amplitude=2.0,
+                                 noise_amplitude=1e-3, seed=seed + 10 * k)
+            xs.append(x)
+            ys.append(y)
+        batches.append(pipe.shard_inputs(np.stack(xs), np.stack(ys)))
+
+    def equal(a, b):
+        for u, v in zip(a, b, strict=True):
+            if isinstance(u, tuple):
+                equal(u, v)
+            elif u is None or v is None:
+                assert u is None and v is None
+            else:
+                if u.is_complex():
+                    u, v = torch.view_as_real(u), torch.view_as_real(v)
+                assert u.dtype == v.dtype and torch.equal(u, v)
+
+    want = []
+    for planes in batches:
+        before = graph_mod.counts()
+        want.append(eager(*planes))
+        torch.cuda.synchronize()
+        step = {k: v - before[k] for k, v in graph_mod.counts().items()}
+    equal(pipe(*batches[0]), want[0])  # the capture's warm-up
+    (call,) = pipe.graphs.values()
+    assert call.counts == {k: v for k, v in step.items() if v}
+    fused = pipe.fused_detector is not None and pipe._row_shard
+    # The clutter filter's shifts (three for ECA-B and NLMS), the fused
+    # detector's two row halos.
+    shifts = 3 if name.startswith(("eca-b", "nlms")) else 4
+    assert step["halo"] == shifts + 2 * fused
+    assert (step["detect"], step["detect_rows"]) == (fused, fused)
+    inputs = [(b.data_ptr(), b.data_ptr() + b.numel() * b.element_size())
+              for b in call.inputs if b is not None]
+    for t in _leaves_of(call.outputs):
+        lo = t.data_ptr()
+        assert all(lo >= hi or lo + t.numel() * t.element_size() <= a
+                   for a, hi in inputs)
+    outs = []
+    before = graph_mod.counts()
+    for k in (1, 2, 0):
+        outs.append(pipe(*batches[k]))
+        if fused:
+            torch.cuda.synchronize()
+            assert int(_scratch(call, rows=True)[:4].abs().sum()) == 0
+        if len(outs) == 1:
+            kept = [t.clone() for t in _leaves_of(outs[0])]
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in graph_mod.counts().items()} == \
+        {k: 3 * v for k, v in step.items()}
+    for out, k in zip(outs, (1, 2, 0)):
+        equal(out, want[k])
+    for a, b in zip(_leaves_of(outs[0]), kept):
+        assert torch.equal(a, b)
+    assert not torch.equal(outs[0].db_map, outs[1].db_map)
+
+
+def _leaves_of(tree):
+    """The tensors of a (nested) NamedTuple of tensors and Nones."""
+    out = []
+    for v in tree:
+        if isinstance(v, tuple):
+            out.extend(_leaves_of(v))
+        elif v is not None:
+            out.append(v)
+    return out
+
+
+@pytest.mark.cuda
+def test_mesh_runtime_replays_the_step_on_card(card):
+    """The mesh runtime on 1 × 4 ranks of the card replays the sharded
+    step by default, from its second batch on, and emits the eager loop's
+    products bit for bit."""
+    from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
+    from blah2_tpu_torch.config import config_from_dict
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+    from blah2_tpu_torch.runtime.radar import RadarRuntime
+
+    cfg = config_from_dict({
+        "capture": {"fs": 40_000, "fc": 100_000_000, "type": "Synthetic"},
+        "process": {
+            "data": {"cpi": 0.1, "buffer": 8},
+            "ambiguity": {"delayMin": -5, "delayMax": 40,
+                          "dopplerMin": -50, "dopplerMax": 50},
+            "clutter": {"enable": True, "delayMin": -5, "delayMax": 40},
+            "detection": {"enable": True, "pfa": 1e-4, "nGuard": 1,
+                          "nTrain": 4, "minDelay": 3, "minDoppler": 10,
+                          "nCentroid": 4}}})
+    windows = []
+    for k in range(5):
+        x, y = synthetic_cpi(cfg.n_samples, 40_000,
+                             [TargetSpec(12, 30.0, 0.3)],
+                             clutter_amplitude=2.0, noise_amplitude=1e-3,
+                             seed=30 + k)
+        windows.append((x.astype(np.complex64), y.astype(np.complex64)))
+    runs = {}
+    for graph in ("auto", False):
+        rt = RadarRuntime(cfg, mesh=make_radar_mesh(1, 4, devices=[card] * 4),
+                          halo_backend="pallas", graph=graph)
+        assert rt.sharded.graph is (graph == "auto")
+        outs = []
+        emit = rt._emit_products
+
+        def keep(out, t0, _outs=outs, _emit=emit, **kw):
+            _outs.append(out)
+            return _emit(out, t0, **kw)
+
+        rt._emit_products = keep
+        for x, y in windows:
+            rt.buffer1.push(x)
+            rt.buffer2.push(y)
+        rt.run(n_cpis=len(windows), quiet=True)
+        runs[graph] = (outs, rt)
+    outs, rt = runs["auto"]
+    (call,) = rt.sharded.graphs.values()
+    assert call.replays == len(windows) - 1
+    assert len(outs) == len(runs[False][0]) == len(windows)
+    for a, b in zip(outs, runs[False][0]):
+        for u, v in zip(_leaves_of(a), _leaves_of(b), strict=True):
+            assert np.array_equal(u, v)

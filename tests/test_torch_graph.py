@@ -251,7 +251,7 @@ def test_replays_copy_inputs_clone_outputs_and_count_launches(cpis):
     call = _CpuGraphCall(pipe.run_quad12, packed[:1], torch.device("cpu"))
     first = call.capture(packed[0])
     _assert_bits(first, pipe.call_quad12(packed[0]))
-    call.launches = (1, 0)
+    call.counts = {"detect": 1}
     before = detect.launches
     a = call(packed[0])
     kept = tree_map(torch.clone, a)
