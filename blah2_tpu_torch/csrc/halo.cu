@@ -43,40 +43,55 @@
 //
 // Across cards (`sys_scope` != 0), where a peer's stream is not ordered
 // with ours (another card of the process, or a card of another process on
-// the host, reached through CUDA IPC), the flag protocol of the TPU
-// kernel's barrier, one block per rank (a grid of (1, blocks)). Block b:
+// the host, reached through CUDA IPC), the TPU kernel's barrier: counting
+// semaphores (pltpu.semaphore_signal with inc=1, then semaphore_wait, which
+// consumes what it waited for), one block per rank (a grid of (1, blocks)).
+// Block b, sending rank r's payload to rank q:
 //
-//   1. arrive: thread 0 stores arrive[r] = epoch (release), then waits until
-//      arrive[q] >= epoch (acquire). Rank q's block runs only after every
-//      earlier kernel on q's stream, so once q has arrived nothing earlier
-//      still reads q's receive buffer.
+//   1. arrive: thread 0 signals arrive[r] (adds 1, release), then consumes
+//      arrive[q]: waits until it is >= 1 (acquire) and takes 1 away. Rank
+//      q's block runs only after every earlier kernel on q's stream, so
+//      once q has arrived nothing earlier still reads q's receive buffer.
 //   2. copy: the block writes the payload (or zeros) into q's receive
 //      buffer on q's card, through unified addressing.
-//   3. signal: __syncthreads, a system fence, then thread 0 stores
-//      ready[q] = epoch (release).
-//   4. wait: thread 0 waits until ready[r] >= epoch (acquire): the rank's
-//      own buffer has arrived before the launch ends, so the stream's next
-//      kernels may read it.
+//   3. signal: __syncthreads, a system fence, then thread 0 signals
+//      ready[q] (adds 1, release).
+//   4. wait: thread 0 consumes ready[r] (acquire): the rank's own buffer
+//      has arrived before the launch ends, so the stream's next kernels
+//      may read it.
 //
-// The flags are 64-bit words in device memory, one arrive and one ready
-// word per rank, on the rank's own card. The flag words, the error word and
-// the receive buffers of a plan (one per call site, shape and direction:
-// call sites with no data dependency on each other get their own, the
-// collective_id rule of the TPU kernel) live in one cudaMalloc'ed window per
-// card (halo_window_alloc), outside PyTorch's caching allocator, so that an
-// exported handle maps the window itself and not the base of a pooled
-// block; across processes each process opens its peers' windows once
-// (halo_ipc_open). The wrapper passes an epoch that grows by one per call of
-// the plan, so no flag is ever reset. Stores are st.release.sys and loads
-// ld.acquire.sys. The receive buffers are reused from call to call, and the
-// arrive wait is what keeps a fast sender from overwriting a buffer that its
-// receiver still reads: the receiver arrives only when every earlier kernel
-// on its stream, the readers of the last call's buffer included, has
-// finished.
+// Every arrive and every ready word has one producer and one consumer a
+// call (the wrapper's routes build the blocks so), and a word is signalled
+// again only after its consumer has taken the last signal away (rank r
+// signals arrive[r] in its next call only after it consumed ready[r],
+// which its sender signals only after consuming arrive[r]; likewise for
+// ready), so a word is 0 or 1 and is never reset. Nothing travels from the
+// host: a launch's parameters are the same on every call, so one graph
+// node replays any number of times. The flags are 64-bit words in device
+// memory, one arrive and one ready word per rank, on the rank's own card.
+// The flag words, the error word and the receive buffers of a plan (one per
+// call site, shape and direction: call sites with no data dependency on
+// each other get their own, the collective_id rule of the TPU kernel) live
+// in one cudaMalloc'ed window per card (halo_window_alloc), outside
+// PyTorch's caching allocator, so that an exported handle maps the window
+// itself and not the base of a pooled block; across processes each process
+// opens its peers' windows once (halo_ipc_open). Signals are
+// red.release.sys, waits ld.acquire.sys, and the consuming decrement a
+// system-scope atomic: a word may lie on a peer card. The receive buffers
+// are reused from call to call, and the arrive wait is what keeps a fast
+// sender from overwriting a buffer that its receiver still reads: the
+// receiver arrives only when every earlier kernel on its stream, the
+// readers of the last call's buffer included, has finished.
+//
+// On one card the wrapper can take this protocol too (a plan made with
+// flags on one card): then every block of the one launch waits on another
+// block of it, which is safe for the few blocks (one a rank, at most
+// kMaxRanks) that a card holds at once.
 //
 // No hang: a wait that runs past kSpinLimit clock cycles (about half a
 // second) writes a nonzero error word (1 for the barrier, 2 for the data)
-// and leaves the block. A debugger, the profiler or CUDA_LAUNCH_BLOCKING
+// and leaves the block; the plan's semaphores are then out of step, and
+// the wrapper raises on the word. A debugger, the profiler or CUDA_LAUNCH_BLOCKING
 // can serialise the launches of two cards, and then the first would wait
 // for ever on a rank whose launch has not been issued. The wrapper reads
 // the word where the caller synchronises anyway.
@@ -116,9 +131,9 @@ struct HaloArgs {
   unsigned int zero_mask;
 };
 
-__device__ __forceinline__ void store_release_sys(unsigned long long* p,
-                                                  unsigned long long v) {
-  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+// Signal a semaphore: add 1, with release semantics at system scope.
+__device__ __forceinline__ void signal_sys(unsigned long long* p) {
+  asm volatile("red.release.sys.global.add.u64 [%0], 1;" ::"l"(p)
                : "memory");
 }
 
@@ -132,14 +147,17 @@ __device__ __forceinline__ unsigned long long load_acquire_sys(
   return v;
 }
 
-// Spin until *p >= epoch; false if the wait ran past kSpinLimit cycles.
-__device__ bool wait_for(const unsigned long long* p,
-                         unsigned long long epoch) {
+// Consume one signal of a semaphore: spin until *p >= 1, then take 1 away;
+// false if the wait ran past kSpinLimit cycles (nothing taken).
+__device__ bool consume(unsigned long long* p) {
   const long long t0 = clock64();
-  while (load_acquire_sys(p) < epoch) {
+  while (load_acquire_sys(p) < 1ULL) {
     if (clock64() - t0 > kSpinLimit) return false;
     __nanosleep(64);
   }
+  asm volatile("red.relaxed.sys.global.add.u64 [%0], %1;" ::"l"(p),
+               "l"(~0ULL)
+               : "memory");
   return true;
 }
 
@@ -168,7 +186,7 @@ __device__ __forceinline__ void copy_payload(const unsigned int* src,
 
 __global__ void __launch_bounds__(kThreads)
 halo_permute(const HaloArgs args, int rows, int words, long long stride,
-             unsigned long long epoch, int sys_scope, unsigned int* err) {
+             int sys_scope, unsigned int* err) {
   const int b = blockIdx.y;
   const bool zero = (args.zero_mask >> b) & 1u;
   unsigned int* dst = args.dst[b];
@@ -181,11 +199,8 @@ halo_permute(const HaloArgs args, int rows, int words, long long stride,
 
   __shared__ int s_ok;
   if (threadIdx.x == 0) {
-    if (args.my_arrive[b] != nullptr) {
-      store_release_sys(args.my_arrive[b], epoch);
-    }
-    s_ok = args.dst_arrive[b] == nullptr ||
-           wait_for(args.dst_arrive[b], epoch);
+    if (args.my_arrive[b] != nullptr) signal_sys(args.my_arrive[b]);
+    s_ok = args.dst_arrive[b] == nullptr || consume(args.dst_arrive[b]);
     if (!s_ok) atomicOr(err, 1u);
   }
   __syncthreads();
@@ -199,9 +214,9 @@ halo_permute(const HaloArgs args, int rows, int words, long long stride,
   if (threadIdx.x == 0) {
     if (args.dst_ready[b] != nullptr) {
       __threadfence_system();
-      store_release_sys(args.dst_ready[b], epoch);
+      signal_sys(args.dst_ready[b]);
     }
-    if (args.my_ready[b] != nullptr && !wait_for(args.my_ready[b], epoch)) {
+    if (args.my_ready[b] != nullptr && !consume(args.my_ready[b])) {
       atomicOr(err, 2u);
     }
   }
@@ -217,7 +232,7 @@ extern "C" int halo_max_ranks() { return kMaxRanks; }
 // a run of n_blocks; any but a source may be null (that part is skipped).
 extern "C" int halo_launch(int n_blocks, void* const* ptrs, int rows,
                            int words, long long stride, unsigned int zero_mask,
-                           long long epoch, int sys_scope, void* err,
+                           int sys_scope, void* err,
                            int device, void* stream) {
   if (n_blocks < 1 || n_blocks > kMaxRanks || rows < 0 || words < 0 ||
       stride < words) {
@@ -252,8 +267,7 @@ extern "C" int halo_launch(int n_blocks, void* const* ptrs, int rows,
                          : static_cast<int>((n + kChunk - 1) / kChunk);
   const dim3 grid(chunks, n_blocks);
   halo_permute<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      args, rows, words, stride, static_cast<unsigned long long>(epoch),
-      sys_scope, static_cast<unsigned int*>(err));
+      args, rows, words, stride, sys_scope, static_cast<unsigned int*>(err));
   e = cudaGetLastError();
   if (current != device) cudaSetDevice(current);
   return static_cast<int>(e);

@@ -43,10 +43,27 @@ collector runs.
 The sharded step (``parallel/sharded.py``) takes the same class: its inputs
 are the per-rank planes flattened, None at the ranks of another process,
 and its products a tree of NamedTuples.
+
+Several cards: a body whose inputs lie on several cards is captured as one
+graph over them, as one XLA program spans a mesh. Each input buffer lies on
+its input's card (a host input's on the home card). The warm-up and the
+capture run on one stream per card, each made the current stream of its
+card, so that the body's launches and cross-card copies (which order the
+two cards' current streams by events) all land in the capture: the other
+cards' streams are forked from the home card's capture stream by events and
+joined back into it before the capture ends. The warm-up lays out the
+kernels' scratch on those very streams. PyTorch gives a capture's private
+memory pool to the capture card alone; each other card's intermediates go
+to a ``torch.cuda.MemPool`` of the graph's own for the capture (held while
+the graph lives), so no later allocation on that card takes memory that a
+replay still writes. A replay runs on the home card's current stream, after
+every card's current stream (where the inputs were copied in), and every
+card's current stream then waits for it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import os
 import time
@@ -111,35 +128,51 @@ def add_counts(delta: dict, sign: int = 1) -> None:
 
 
 class StaticCall:
-    """``body(*buffers)`` over static input buffers on ``device``, made
-    like ``inputs`` (None where an input is None); eager until
-    :meth:`capture`, a graph replay after. A bound method ``body`` is held
-    weakly.
+    """``body(*buffers)`` over static input buffers, each made like its
+    input of ``inputs`` on the input's device, a host input's on
+    ``device`` (None where an input is None); eager until :meth:`capture`,
+    a graph replay after. ``device``: the home card, where the graph is
+    launched. A bound method ``body`` is held weakly.
 
     ``meshes``: the meshes whose collective logs the body appends to.
     ``counts``: what one replay adds to :func:`counts` (names whose count
     moves); ``ops``: what it appends to each mesh's open log.
     ``replays``: the replays so far.
-    ``stream``: the capture's stream, on which the warm-up laid out the
-    kernels' scratch that the graph's launches use.
+    ``cards``: the home device, then the other devices of the inputs.
+    ``stream``: the capture's stream on the home card; ``streams``: the
+    capture's stream of each card by index, on which the warm-up laid out
+    the kernels' scratch that the graph's launches use.
+    ``capture_error_mode``: ``torch.cuda.graph``'s; "thread_local" where
+    another thread of the process makes CUDA calls throughout (NCCL's
+    watchdog).
     ``stats``: the capture's ``warmup_ms``, ``capture_ms`` and
     ``instantiate_ms`` (host wall)."""
 
     def __init__(self, body: Callable,
                  inputs: Sequence[Optional[torch.Tensor]],
                  device: torch.device, name: str = "cpi",
-                 meshes: Sequence = ()):
+                 meshes: Sequence = (),
+                 capture_error_mode: str = "global"):
         self._body = weakref.WeakMethod(body) \
             if isinstance(body, types.MethodType) else lambda: body
         self.device = device
         self.name = name
         self.meshes = tuple(meshes)
-        self.inputs = [None if t is None else
-                       torch.empty(t.shape, dtype=t.dtype, device=device)
-                       for t in inputs]
+        self.capture_error_mode = capture_error_mode
+        # A host input's buffer lies on the home device: the call copies
+        # it in.
+        self.inputs = [None if t is None else torch.empty(
+            t.shape, dtype=t.dtype,
+            device=device if t.device.type == "cpu" else t.device)
+            for t in inputs]
+        self.cards = [device] + list(dict.fromkeys(
+            b.device for b in self.inputs
+            if b is not None and b.device != device))
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs = None
         self.stream = None
+        self.streams: dict = {}
+        self._pools: list = []
         self.replays = 0
         self.counts: dict = {}
         self.ops: list = [[] for _ in self.meshes]
@@ -175,13 +208,43 @@ class StaticCall:
         self._load(inputs)
         if self.graph is None:
             return self.body(*self.inputs)
-        self.graph.replay()
+        self._replay()
         self.replays += 1
         add_counts(self.counts)
         for mesh, ops in zip(self.meshes, self.ops):
             if mesh.comm_log is not None:
                 mesh.comm_log.extend(ops)
         return tree_map(torch.clone, self.outputs)
+
+    def release(self) -> None:
+        """Free the graph, its outputs and its pools; later calls run the
+        body eagerly."""
+        self.graph = self.outputs = None
+        self._pools = []
+
+    def _replay(self) -> None:
+        """The graph on the home card's current stream, ordered after
+        every card's current stream and before their next work."""
+        others = self.cards[1:]
+        if not others:
+            self.graph.replay()
+            return
+        with torch.cuda.device(self.device):
+            home = torch.cuda.current_stream(self.device)
+            for d in others:
+                home.wait_stream(torch.cuda.current_stream(d))
+            self.graph.replay()
+            for d in others:
+                torch.cuda.current_stream(d).wait_stream(home)
+
+    @contextlib.contextmanager
+    def _on_streams(self):
+        """Each card's capture stream its current stream (the home card's
+        last, so that it is the current device)."""
+        with contextlib.ExitStack() as stack:
+            for d in reversed(self.cards):
+                stack.enter_context(torch.cuda.stream(self.streams[d.index]))
+            yield
 
     def record(self, fn: Callable):
         """``fn()`` (the body under capture), what it counts kept for the
@@ -203,18 +266,22 @@ class StaticCall:
                 mesh.comm_log = log
 
     def capture(self, *inputs):
-        """Warm up and capture the body on a stream of its own; later
-        calls replay. Returns the warm-up call's outputs, the products of
-        ``inputs``."""
+        """Warm up and capture the body on streams of its own, one a
+        card; later calls replay. Returns the warm-up call's outputs, the
+        products of ``inputs``."""
         dev = self.device
-        if dev.type != "cuda":
+        if any(d.type != "cuda" for d in self.cards):
             raise ValueError(f"{self.name}: a CUDA graph needs a card, the "
-                             f"buffers are on {dev}")
+                             f"buffers are on "
+                             f"{', '.join(map(str, self.cards))}")
         t0 = time.perf_counter()
-        self.stream = stream = torch.cuda.Stream(dev)
-        current = torch.cuda.current_stream(dev)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
+        callers = {d.index: torch.cuda.current_stream(d) for d in self.cards}
+        self.streams = {d.index: torch.cuda.Stream(d) for d in self.cards}
+        self.stream = stream = self.streams[dev.index]
+        for d in self.cards:
+            self.streams[d.index].wait_stream(callers[d.index])
+            self.streams[d.index].wait_stream(callers[dev.index])
+        with self._on_streams():
             self._load(inputs)
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
@@ -222,21 +289,38 @@ class StaticCall:
                 warm = self.body(*self.inputs)
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
-        current.wait_stream(stream)
-        # The warm-up's outputs were made on the capture stream: keep their
-        # memory from new work there until the caller's stream is done.
-        tree_map(lambda t: t.record_stream(current), warm)
+        for d in self.cards:
+            callers[d.index].wait_stream(self.streams[d.index])
+        # The warm-up's outputs were made on the capture streams: keep their
+        # memory from new work there until the callers' streams are done.
+        tree_map(lambda t: t.record_stream(torch.cuda.current_stream(
+            t.device)), warm)
         t1 = time.perf_counter()
 
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         failed: list = []
+        others = [self.streams[d.index] for d in self.cards[1:]]
 
         def body():
             try:
-                return self.body(*self.inputs)
+                # Fork the other cards' streams into the capture, and join
+                # them back before it ends.
+                for s in others:
+                    s.wait_stream(stream)
+                out = self.body(*self.inputs)
+                for s in others:
+                    stream.wait_stream(s)
+                return out
             except BaseException as e:
                 failed.append(e)
                 raise
+
+        # The other cards' intermediates: a pool of the graph's own on
+        # each, made with that card current.
+        self._pools = []
+        for d in self.cards[1:]:
+            with torch.cuda.device(d):
+                self._pools.append((d, torch.cuda.MemPool()))
 
         # Python's collector must not run inside the capture: a cycle it
         # frees may hold device memory of the package's own (a halo plan's
@@ -245,7 +329,14 @@ class StaticCall:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=stream):
+            with contextlib.ExitStack() as stack:
+                for d, pool in self._pools:
+                    stack.enter_context(torch.cuda.use_mem_pool(pool,
+                                                                device=d))
+                stack.enter_context(self._on_streams())
+                stack.enter_context(torch.cuda.graph(
+                    graph, stream=stream,
+                    capture_error_mode=self.capture_error_mode))
                 outputs = self.record(body)
         except Exception as e:
             cause = failed[0] if failed else e

@@ -230,17 +230,24 @@ def multihost_meshes(n_ranks: int) -> list:
 
 def run_meshes(devices: Sequence, n_ranks: int) -> dict:
     """The multi-host worker's steps on meshes of ``n_ranks`` ranks over
-    every process (``devices``: this process's ranks): {``db_CxP``: maps,
-    ``ok_CxP``: clutter flags}."""
+    every process (``devices``: this process's ranks), each run twice on
+    one batch, the second a replay where the step is captured
+    (``graph_mode``): {``db_CxP``: the second's maps, ``ok_CxP``: its
+    clutter flags, ``replays_CxP``: the graph's replays}."""
     cfg = dryrun_config()
     xb, yb = cell_batch(cfg, 2, first_seed=100)
     got = {}
     for n_cpi, n_pulse in multihost_meshes(n_ranks):
         mesh = make_radar_mesh(n_cpi, n_pulse, devices=devices)
         pipe = ShardedCpiPipeline(cfg, mesh)
-        out = pipe(*pipe.shard_inputs(xb[:n_cpi], yb[:n_cpi]))
+        planes = pipe.shard_inputs(xb[:n_cpi], yb[:n_cpi])
+        pipe(*planes)
+        out = pipe(*planes)
         got[f"db_{n_cpi}x{n_pulse}"] = out.db_map.cpu().numpy()
         got[f"ok_{n_cpi}x{n_pulse}"] = out.clutter_ok.cpu().numpy()
+        got[f"replays_{n_cpi}x{n_pulse}"] = np.array(sum(
+            call.replays for call in pipe.graphs.values()))
+    halo_permute.check()
     return got
 
 
@@ -281,7 +288,9 @@ def dryrun_multihost(n_processes: int = 2, ranks_per_process: int = 4,
     where each has cards of its own); every process is killed when any
     runs past ``seconds``, and then this raises. Process 0's maps must be
     the bits of this process's run of the same meshes on the same device
-    type. Returns {mesh: max |difference| dB}."""
+    type, each from a replay where the step is captured (NCCL processes
+    and one process on cards) and as many replays in both. Returns {mesh:
+    max |difference| dB}."""
     dev = resolve_device(device)
     n = n_processes * ranks_per_process
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -333,6 +342,11 @@ def dryrun_multihost(n_processes: int = 2, ranks_per_process: int = 4,
                f"{key}: {got[key].shape} against {want[key].shape}")
         if key.startswith("ok_"):
             _check(bool(got[key].all()), f"{key}: clutter filter not ok")
+            continue
+        if key.startswith("replays_"):
+            _check(int(got[key]) == int(want[key]),
+                   f"{key}: process 0 replayed {int(got[key])} times, one "
+                   f"process {int(want[key])}")
             continue
         diffs[key[3:]] = float(np.abs(got[key] - want[key]).max())
         _check(np.array_equal(got[key], want[key]),

@@ -19,14 +19,20 @@ lies. A call whose ranks all lie on one card returns views into a fresh
 contiguous ``(ranks on the card, *shape)`` tensor of the payload's type.
 
 Where the ranks' streams are not ordered with each other (several cards, or
-a pair through CUDA IPC) the kernel takes its ``.sys`` flag protocol, and
-the flag words, an error word and the receive buffers live in the call's
-plan (one per axis, direction, mask, collective_id, shape, dtype and
-strides): one cudaMalloc'ed window per card, zeroed once. The receive
-buffers are reused from call to call: the views returned live until the
-next call with the same plan, and the kernel's arrive barrier keeps a
-sender from writing a buffer before its readers of the last call have run.
-The sharded step reads every halo inside the step.
+a pair through CUDA IPC) the kernel takes its ``.sys`` flag protocol: the
+TPU kernel's counting semaphores, each arrive and ready word signalled once
+and consumed once a call (:func:`semaphores`), so a launch's parameters
+never change and a CUDA graph replays it. The flag words, an error word and
+the receive buffers live in the call's plan (one per axis, direction,
+mask, collective_id, shape, dtype and strides): one cudaMalloc'ed window
+per card, zeroed once. The receive buffers are reused from call to call:
+the views returned live until the next call with the same plan, and the
+kernel's arrive barrier keeps a sender from writing a buffer before its
+readers of the last call have run. The sharded step reads every halo
+inside the step. ``HaloKernel(flags_on_one_card=True)`` gives a one-card
+plan the same protocol, one launch whose blocks wait on one another: a
+check of the protocol on a machine with one card, not a route the step
+takes.
 
 Across processes (a mesh over a job, ``parallel/distributed.py``) each pair
 (sender, receiver) takes one route, fixed by the mesh's layout alone:
@@ -44,13 +50,13 @@ Across processes (a mesh over a job, ``parallel/distributed.py``) each pair
     ``exchange``); a masked edge on this route is zero-filled by the
     receiver's own launch.
 
-Each plan's host epoch grows by one a call; across processes it stays in
-step because every process makes the same calls in the same order. No
-route is chosen after a failure: a failed IPC open or launch raises. A wait
-that times out sets the plan's error word (:meth:`HaloKernel.error_words`);
-:meth:`HaloKernel.check` raises on it in every process. ``pairs`` counts,
-per route, the pairs whose receiver is in this process (a masked edge moves
-no payload and is not counted).
+Across processes the semaphores stay in step because every process makes
+the same calls in the same order. No route is chosen after a failure: a
+failed IPC open or launch raises. A wait that times out sets the plan's
+error word (:meth:`HaloKernel.error_words`); :meth:`HaloKernel.check`
+raises on it in every process. ``pairs`` counts, per route, the pairs whose
+receiver is in this process (a masked edge moves no payload and is not
+counted).
 """
 
 from __future__ import annotations
@@ -73,9 +79,6 @@ from blah2_tpu_torch.parallel.mesh import RadarMesh
 MAX_COLLECTIVE_IDS = 8
 
 DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
-
-#: The epoch argument of a launch on one card, which waits on no flag.
-_EPOCH_ONE_CARD = ctypes.c_longlong(0)
 
 
 def _source(mesh: RadarMesh, axis: str, to_left: bool) -> List[int]:
@@ -183,16 +186,16 @@ class _Windows:
     cudaMalloc'ed window (per rank on the card an arrive and a ready word,
     then the error word, then per rank a receive buffer); with ``export``,
     the peers' windows opened in this process by IPC handles exchanged once
-    (every process of the job builds the plan, so every one takes part);
-    the epoch of the plan's calls. Released when the plan goes."""
+    (every process of the job builds the plan, so every one takes part).
+    Released when the plan goes."""
 
     def __init__(self, lib, mesh: RadarMesh, ranks_on, cards, slot_bytes,
                  opens_on, export: bool):
-        self.epoch = 0
         slot = -(-slot_bytes // _ALIGN) * _ALIGN
         hbytes = lib.halo_ipc_handle_bytes()
         self.owned, self.opened = [], []
         self.error_views: List[torch.Tensor] = []
+        self.flag_views: List[torch.Tensor] = []
         self.error_addr: List[int] = []
         self.slot_views: Dict[int, torch.Tensor] = {}
         self.addr: Dict[int, tuple] = {}     # rank -> (arrive, ready, slot)
@@ -212,6 +215,7 @@ class _Windows:
                                      device=dev)
             self.error_views.append(window[16 * n:16 * n + 8]
                                     .view(torch.int64))
+            self.flag_views.append(window[:16 * n].view(torch.int64))
             self.error_addr.append(ptr.value + 16 * n)
             for i, r in enumerate(ranks):
                 offsets[r] = (w, 16 * i, 16 * i + 8, head + i * slot)
@@ -266,6 +270,25 @@ class Block(NamedTuple):
     ready: Optional[int]
 
 
+class Semaphores(NamedTuple):
+    """The flag words of a block that takes flags, by the rank whose word
+    it is (None: none): it signals ``arrive``, consumes the receiver's
+    arrive word, signals the receiver's ready word, consumes its own ready
+    word (``csrc/halo.cu`` steps 1, 3 and 4)."""
+    signal_arrive: Optional[int]
+    consume_arrive: Optional[int]
+    signal_ready: Optional[int]
+    consume_ready: Optional[int]
+
+
+def semaphores(block: Block) -> Semaphores:
+    """What ``block`` signals and consumes in a launch that takes flags:
+    a block with a source and a destination waits for the destination's
+    arrival and signals its ready word."""
+    peer = None if block.src is None else block.dst
+    return Semaphores(block.arrive, peer, peer, block.ready)
+
+
 class Routes(NamedTuple):
     """How this process serves one halo call: the pairs by route, the
     blocks of each of its cards' launches, whether they take flags, and
@@ -278,7 +301,7 @@ class Routes(NamedTuple):
 
 
 def routes(mesh: RadarMesh, axis: str, to_left: bool, mask_edge: bool,
-           ipc_ok: bool) -> Routes:
+           ipc_ok: bool, flags_on_one_card: bool = False) -> Routes:
     """The routes of a call, from the mesh's layout alone: a pair whose
     ends are in one process is ``kernel``; across processes it is ``ipc``
     where ``ipc_ok`` (the job's NCCL layout) and the two processes share a
@@ -287,7 +310,8 @@ def routes(mesh: RadarMesh, axis: str, to_left: bool, mask_edge: bool,
     (zeros to a masked edge), and takes part in the flags as a receiver
     where its own sender writes by the kernel; a masked edge whose sender
     is reached through the group gets a block of its own that zero-fills
-    its buffer."""
+    its buffer. ``flags_on_one_card``: the flags wherever a pair goes by
+    the kernel, one card or not."""
     size = mesh.size
     src = _source(mesh, axis, to_left)
     feeds = [0] * size
@@ -310,7 +334,7 @@ def routes(mesh: RadarMesh, axis: str, to_left: bool, mask_edge: bool,
             counts[route(src[r], r)] += 1
     cards = mesh.distinct_devices()
     mine = set(mesh.local_ranks)
-    flags = len(cards) > 1 or any(
+    flags = flags_on_one_card or len(cards) > 1 or any(
         route(s, r) == "ipc" and (s in mine or r in mine)
         for r, s in enumerate(src))
     blocks = []
@@ -341,7 +365,8 @@ class _Plan:
     launch: its blocks as addresses and the launcher's arguments as ctypes
     values, so that a call only fills in data pointers."""
 
-    def __init__(self, lib, mesh, axis, to_left, mask_edge, t, max_ranks):
+    def __init__(self, lib, mesh, axis, to_left, mask_edge, t, max_ranks,
+                 flags_on_one_card=False):
         lay = row_layout(t)
         self.slot_bytes = t.numel() * t.element_size()
         self.shape, self.dtype = tuple(t.shape), t.dtype
@@ -350,7 +375,8 @@ class _Plan:
                              for r in mesh.local_ranks}
         job = distributed.job()
         plan = routes(mesh, axis, to_left, mask_edge,
-                      job is not None and job.backend == "nccl")
+                      job is not None and job.backend == "nccl",
+                      flags_on_one_card)
         self.counts, self.group_pairs = plan.counts, plan.group_pairs
         self.sys_scope = int(plan.flags)
         self.ranks_on = [[r for r in mesh.local_ranks
@@ -398,12 +424,12 @@ class _Plan:
             mask = sum(1 << i for i, b in enumerate(blocks) if b.zero)
             err = 0
             if self.sys_scope:
-                peer = [None if b.src is None else b.dst for b in blocks]
+                sem = [semaphores(b) for b in blocks]
                 table[2 * n:] = (
-                    [flag(b.arrive, False) for b in blocks]
-                    + [flag(q, False) for q in peer]
-                    + [flag(q, True) for q in peer]
-                    + [flag(b.ready, True) for b in blocks])
+                    [flag(f.signal_arrive, False) for f in sem]
+                    + [flag(f.consume_arrive, False) for f in sem]
+                    + [flag(f.signal_ready, True) for f in sem]
+                    + [flag(f.consume_ready, True) for f in sem])
                 err = self.windows.error_addr[c]
             head = (ctypes.c_int(n), table, ctypes.c_int(lay.rows),
                     ctypes.c_int(lay.words), ctypes.c_longlong(lay.stride),
@@ -419,9 +445,16 @@ class HaloKernel:
     """Wrapper of the CUDA kernel ``csrc/halo.cu``: CPU buffers take
     :func:`halo_permute_plain`; CUDA buffers launch the kernel (one launch
     per device of this process that has work) or raise. ``launches`` counts
-    the kernel launches, ``pairs`` the pairs by route."""
+    the kernel launches, ``pairs`` the pairs by route.
 
-    def __init__(self):
+    ``flags_on_one_card``: plans on one card take the flag protocol too
+    (checks of the protocol, not the step's route). ``name``: the prefix of
+    :meth:`snapshot`'s names, unique among ``dsp/graph.py``'s
+    ``COUNTERS``."""
+
+    def __init__(self, flags_on_one_card: bool = False, name: str = "halo"):
+        self.flags_on_one_card = flags_on_one_card
+        self.name = name
         self.launches = 0
         self.pairs = {"kernel": 0, "ipc": 0, "group": 0}
         self._lib = None
@@ -441,7 +474,7 @@ class HaloKernel:
             lib.halo_max_ranks.argtypes = []
             lib.halo_max_ranks.restype = ci
             lib.halo_launch.argtypes = [ci, ctypes.POINTER(vp), ci, ci, ll,
-                                        ctypes.c_uint, ll, ci, vp, ci, vp]
+                                        ctypes.c_uint, ci, vp, ci, vp]
             lib.halo_launch.restype = ci
             lib.halo_enable_peer.argtypes = [ci]
             lib.halo_enable_peer.restype = ci
@@ -481,7 +514,7 @@ class HaloKernel:
         if len(mesh.distinct_devices()) > 1:
             self._enable_peers(mesh.distinct_devices())
         plan = _Plan(lib, mesh, axis, to_left, mask_edge, b0,
-                     self._max_ranks)
+                     self._max_ranks, self.flags_on_one_card)
         plans[key] = plan
         return plan
 
@@ -516,10 +549,6 @@ class HaloKernel:
             if b.shape != shape or b.stride() != stride or b.dtype != dtype:
                 raise ValueError("halo: every rank's buffer must have one "
                                  "shape, dtype and stride")
-        epoch = _EPOCH_ONE_CARD
-        if plan.sys_scope:
-            plan.windows.epoch += 1
-            epoch = ctypes.c_longlong(plan.windows.epoch)
         if plan.windows is None:
             outs = [torch.empty(a, dtype=dtype, device=d)
                     for a, d in zip(plan.alloc, plan.cards)]
@@ -533,7 +562,7 @@ class HaloKernel:
             table[n:2 * n] = [None if d is None else
                               d[1] if d[0] == "abs" else bases[d[1]] +
                               d[2] * size for d in dests]
-            code = launch(*head, epoch, *tail, current_stream_handle(index))
+            code = launch(*head, *tail, current_stream_handle(index))
             if code != 0:
                 raise RuntimeError(f"halo kernel launch failed: CUDA error "
                                    f"{code}")
@@ -562,16 +591,16 @@ class HaloKernel:
             self.pairs[route] += n
 
     def snapshot(self) -> dict:
-        """The counts by name (``halo``, and ``halo_<route>`` per route),
-        for ``dsp/graph.py`` ``COUNTERS``."""
-        return {"halo": self.launches,
-                **{"halo_" + k: v for k, v in self.pairs.items()}}
+        """The counts by name (:attr:`name`, and ``<name>_<route>`` per
+        route), for ``dsp/graph.py`` ``COUNTERS``."""
+        return {self.name: self.launches,
+                **{f"{self.name}_{k}": v for k, v in self.pairs.items()}}
 
     def add(self, delta: dict, sign: int = 1) -> None:
         """Add ``sign`` times ``delta``'s entries of :meth:`snapshot`'s
         names."""
-        self.add_launches(sign * delta.get("halo", 0),
-                          {k: sign * delta.get("halo_" + k, 0)
+        self.add_launches(sign * delta.get(self.name, 0),
+                          {k: sign * delta.get(f"{self.name}_{k}", 0)
                            for k in self.pairs})
 
     def error_words(self, mesh: Optional[RadarMesh] = None
@@ -586,6 +615,14 @@ class HaloKernel:
         return [w for plans in meshes for plan in plans.values()
                 if plan.windows is not None
                 for w in plan.windows.error_views]
+
+    def flag_words(self, mesh: RadarMesh) -> List[torch.Tensor]:
+        """The arrive and ready words of ``mesh``'s plans that take flags,
+        per card of each plan an int64 view (arrive, ready per rank on the
+        card): all 0 once every launch has ended, each signal consumed."""
+        return [w for plan in self._plans.get(mesh, {}).values()
+                if plan.windows is not None
+                for w in plan.windows.flag_views]
 
     def error(self) -> int:
         """This process's error words, or-ed. Reading them waits for the

@@ -35,7 +35,9 @@ from __future__ import annotations
 import datetime
 import os
 import socket
-from typing import List, NamedTuple, Optional, Sequence
+import types
+import weakref
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -53,6 +55,8 @@ class Job(NamedTuple):
 
 
 _job: Optional[Job] = None
+#: What :func:`shutdown` calls before the groups go (weak references).
+_at_shutdown: list = []
 
 
 def maybe_initialize(
@@ -171,12 +175,27 @@ def job() -> Optional[Job]:
     return _job
 
 
+def at_shutdown(fn: Callable[[], None]) -> None:
+    """Have :func:`shutdown` call ``fn()`` before the groups go (a bound
+    method held weakly). A CUDA graph that captured NCCL calls holds their
+    communicator, whose destruction then waits for the graph: such graphs
+    are freed here first."""
+    _at_shutdown.append(weakref.WeakMethod(fn)
+                        if isinstance(fn, types.MethodType) else lambda: fn)
+
+
 def shutdown() -> None:
-    """Leave the job: a barrier, so no process tears its groups down while
-    another still uses them, then the groups go."""
+    """Leave the job: what :func:`at_shutdown` registered, then a
+    barrier, so no process tears its groups down while another still uses
+    them, then the groups go."""
     global _job
     if _job is None:
         return
+    for ref in _at_shutdown:
+        fn = ref()
+        if fn is not None:
+            fn()
+    _at_shutdown.clear()
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     _job = None

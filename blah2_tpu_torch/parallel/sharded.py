@@ -51,12 +51,17 @@ module's:
     JAX module's ``use_pallas_detect`` does
     (`blah2_tpu/parallel/sharded.py:669`): it computes CA-CFAR.
 
-On one card in one process the step runs as a CUDA graph, as JAX runs it
-as one compiled program (``blah2_tpu/parallel/sharded.py:315``): one graph
-per input layout (per-rank plane shapes and dtypes, the batch), captured at
-its first call by ``dsp/graph.py``'s ``StaticCall`` and replayed after,
-both kernels inside it. Over several cards or several processes the step
-stays eager (:func:`graph_mode` says why).
+On cards the step runs as a CUDA graph, as JAX runs it as one compiled
+program on any mesh (``blah2_tpu/parallel/sharded.py:315``): one graph per
+input layout (per-rank plane shapes and dtypes, the batch), captured at its
+first call by ``dsp/graph.py``'s ``StaticCall`` and replayed after, both
+kernels inside it. Where this process's ranks lie on several cards the
+graph spans them (one capture stream a card); in a job whose payloads go
+by NCCL (every process on cards of its own) each process captures its own
+segment of the step, its payload collectives inside the capture, and
+every process captures at the same call and replays in step. Over gloo
+(processes that share a card, or the CPU) the step stays eager
+(:func:`graph_mode` says why).
 
 Clutter correlations are linear (zero-extended), as in the JAX module: the
 sharded pipeline matches the single-device ``CpiPipeline`` in
@@ -129,27 +134,32 @@ def rows_fit_window(fused_detector, rows: int) -> bool:
 
 def graph_mode(mesh: RadarMesh, graph="auto") -> Tuple[bool, str]:
     """Whether the sharded step on ``mesh`` runs as a CUDA graph, and why
-    or why not. ``graph``: "auto" captures where every rank of the mesh
-    lies on one card of one process and runs eagerly elsewhere; False runs
-    eagerly; True captures and raises ``ValueError`` where it cannot."""
+    or why not, from the mesh's layout alone (so every process of a job
+    decides the same). ``graph``: "auto" captures where this process's
+    ranks lie on cards, on one or several, and the job's payloads travel
+    by NCCL; it runs eagerly over gloo (processes that share a card or
+    compute on the host: the payloads travel through host memory) and on
+    the CPU; False runs eagerly; True captures and raises ``ValueError``
+    where it cannot."""
     if graph is False:
         return False, "graph=False"
     cards = mesh.distinct_devices()
-    if mesh.process_count > 1:
-        # parallel/collectives.py exchange, parallel/distributed.py.
-        why = (f"the mesh spans {mesh.process_count} processes: the "
-               f"process-group collectives and the halo's group route are "
-               f"host calls")
-    elif len(cards) > 1:
-        # ops/halo.py raises the plan's epoch on the host on every call
-        # and the kernel takes it by value (csrc/halo.cu HaloArgs).
-        why = (f"the ranks lie on {len(cards)} cards: the halo kernel's "
-               f"flag epoch travels from the host in its parameters, so a "
-               f"replay would repeat an old one")
-    elif cards[0].type != "cuda":
+    job = distributed.job()
+    if mesh.process_count > 1 and (job is None or job.backend != "nccl"):
+        # parallel/distributed.py _wire: gloo takes host tensors.
+        why = (f"the mesh spans {mesh.process_count} processes over gloo "
+               f"({job.reason if job else 'no job'}): the payloads travel "
+               f"through host memory, a host call in every step")
+    elif any(d.type != "cuda" for d in cards):
         why = f"the ranks are on {cards[0]}: a CUDA graph needs a card"
     else:
-        return True, f"every rank on {cards[0]}, one process"
+        where = (f"every rank of this process on "
+                 f"{', '.join(str(d) for d in cards)}")
+        if mesh.process_count > 1:
+            return True, (f"{where}, process {mesh.process_index} of "
+                          f"{mesh.process_count}: the NCCL payloads "
+                          f"captured")
+        return True, f"{where}, one process"
     if graph == "auto":
         return False, why
     raise ValueError(f"graph=True: {why}")
@@ -710,8 +720,16 @@ class ShardedCpiPipeline(nn.Module):
         products."""
         if self.before_capture is not None:
             self.before_capture()
+        # In a job, NCCL's watchdog thread queries its events while the
+        # capture runs: the capture holds only this thread to its rules,
+        # so another thread's call cannot fail it.
+        mode = ("thread_local" if self.mesh.process_count > 1
+                else "global")
         call = StaticCall(self._flat_step, planes, self.device,
-                          name="sharded step", meshes=(self.mesh,))
+                          name="sharded step", meshes=(self.mesh,),
+                          capture_error_mode=mode)
+        if self.mesh.process_count > 1:
+            distributed.at_shutdown(call.release)
         out = call.capture(*planes)
         self.graphs[key] = call
         return out

@@ -6,7 +6,9 @@
 Run from the root of a checkout on a machine with a CUDA card and ``nvcc``.
 It builds the CUDA kernels from ``blah2_tpu_torch/csrc`` (the fused
 detector and the halo exchange, both ``nvcc`` runs started together),
-holds each against its plain PyTorch version, runs the golden recording and
+holds each against its plain PyTorch version (the halo kernel's flag
+protocol too: a one-card plan made to take its semaphores, replayed from a
+CUDA graph), runs the golden recording and
 the default config (1.5 Msample CPIs, a 301 x 411 map) through the
 single-device pipeline's entry points (each captured as a CUDA graph at
 its first call and replayed after), the graphs against the eager calls bit
@@ -25,8 +27,10 @@ over two processes, then each measuring entry point of
 ``blah2_tpu_torch/bench`` at cut counts, then the system as it is deployed:
 the 3-process topology (this process's radar sending over TCP into a
 standalone API process), the supervised restart soak, the dry run
-(``blah2_tpu_torch.entry.dryrun_multichip(4)``) and the scaling projection
-with its times measured, and prints as its last line
+(``blah2_tpu_torch.entry.dryrun_multichip(4)``), where the machine has two
+or more cards the step as one CUDA graph over them (in a process that sees
+them all), and the scaling projection with its times measured, and prints
+as its last line
 ``{"ok": true, "device": {...}}``. Every failed check raises, so the
 script exits non-zero and prints no result. It imports nothing of the JAX
 package.
@@ -892,6 +896,122 @@ def phase_halo_vs_plain(dev):
           f"{n_bad} values differ over the repeated calls")
     check(word == 0, f"halo kernel error word {word}")
     return err
+
+
+#: Replays of the flagged plan's graph, each on new payloads and checked;
+#: then replays profiled in one window, and timed by events.
+HALO_FLAGS_REPLAYS = 100
+HALO_FLAGS_PROFILED = 10
+HALO_FLAGS_TIMED = 50
+
+
+def phase_halo_flags(dev, card):
+    """The halo kernel's flag protocol, counting semaphores that each
+    launch signals and consumes, replayed from a CUDA graph on the one
+    card: a 1 x 4 mesh's plan made to take the flags
+    (``HaloKernel(flags_on_one_card=True)``: one launch whose four blocks
+    wait on one another), the step's two masked shifts of (1, 409)
+    complex64 slices of (1, 1000) blocks (to the left and to the right),
+    captured by ``dsp/graph.py``'s StaticCall and replayed
+    HALO_FLAGS_REPLAYS times on new payloads: each replay the bits of
+    halo_permute_plain, the launches counted once a replay (the capture's
+    taken back), the error word 0 and every semaphore back at 0 after.
+    Then HALO_FLAGS_PROFILED replays profiled (the kernel's records
+    exactly the counted launches, its device time a launch) and
+    HALO_FLAGS_TIMED timed by events, eager calls beside them."""
+    import collections
+
+    import torch
+
+    from blah2_tpu_torch.dsp import graph as graph_mod
+    from blah2_tpu_torch.dsp.graph import StaticCall
+    from blah2_tpu_torch.ops.halo import HaloKernel, halo_permute_plain
+
+    t0 = time.perf_counter()
+    kernel = HaloKernel(flags_on_one_card=True, name="halo_flags")
+    mesh = one_card_mesh(dev, (1, 4))
+    n = mesh.size
+    Halos = collections.namedtuple("Halos", [f"h{i}" for i in range(2 * n)])
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def payloads():
+        return [torch.randn((1, 1000), dtype=torch.complex64, device=dev,
+                            generator=gen) for _ in range(n)]
+
+    def body(*blocks):
+        left = kernel([b[..., :409] for b in blocks], mesh, to_left=True,
+                      collective_id=0, mask_edge=True)
+        right = kernel([b[..., -409:] for b in blocks], mesh,
+                       to_left=False, collective_id=1, mask_edge=True)
+        return Halos(*left, *right)
+
+    def plain(blocks):
+        return (halo_permute_plain([b[..., :409] for b in blocks], mesh,
+                                   to_left=True, mask_edge=True)
+                + halo_permute_plain([b[..., -409:] for b in blocks], mesh,
+                                     to_left=False, mask_edge=True))
+
+    graph_mod.COUNTERS.append(kernel)
+    try:
+        first = payloads()
+        call = StaticCall(body, first, dev, name="halo flags")
+        warm = call.capture(*first)
+        check(call.counts == {"halo_flags": 2, "halo_flags_kernel": 6},
+              f"halo flags: the graph holds {call.counts}")
+        check(all(torch.equal(bits(g), bits(w))
+                  for g, w in zip(warm, plain(first))),
+              "halo flags: the warm-up differs from halo_permute_plain")
+        # The main path: the count at 0 just before, read just after.
+        kernel.launches = 0
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(HALO_FLAGS_REPLAYS):
+            blocks = payloads()
+            got = call(*blocks)
+            for g, w in zip(got, plain(blocks)):
+                bad += (bits(g) != bits(w)).sum()
+        launches = kernel.launches
+        torch.cuda.synchronize()
+        kernel.check()
+        word = kernel.error()
+        flags = [int(w.abs().sum()) for w in kernel.flag_words(mesh)]
+        check(int(bad) == 0, f"halo flags: {int(bad)} values differ over "
+              f"{HALO_FLAGS_REPLAYS} replays")
+        check(word == 0, f"halo flags: error word {word}")
+        check(flags == [0, 0], f"halo flags: semaphores {flags} after the "
+              f"replays")
+        check(launches == 2 * HALO_FLAGS_REPLAYS,
+              f"halo flags: {launches} launches counted in "
+              f"{HALO_FLAGS_REPLAYS} replays")
+        blocks = payloads()
+
+        def window():
+            before = kernel.launches
+            by_name = device_profile(lambda: call(*blocks),
+                                     HALO_FLAGS_PROFILED)
+            seen = sum(c for k, (_, c) in by_name.items()
+                       if "halo_permute" in k)
+            return by_name, shortfall(seen, kernel.launches - before,
+                                      "halo launches")
+
+        by_name = profiled_whole(window, "halo flags replayed")
+        us, cnt = [sum(v[i] for k, v in by_name.items()
+                       if "halo_permute" in k) for i in (0, 1)]
+        replay_ms = event_times(lambda: call(*blocks), HALO_FLAGS_TIMED, 3)
+        eager_ms = event_times(lambda: body(*blocks), HALO_FLAGS_TIMED, 3)
+        torch.cuda.synchronize()
+        check(kernel.error() == 0, "halo flags: error word after timing")
+    finally:
+        graph_mod.COUNTERS.remove(kernel)
+    line = {"mesh": "1x4 on one card", "replays": HALO_FLAGS_REPLAYS,
+            "launches_in_replays": launches, "differing_values": 0,
+            "error_word": word, "semaphores_after": flags,
+            "profiled_launches": cnt,
+            "device_us_per_launch": us / max(cnt, 1),
+            "ms_per_replay": replay_ms, "ms_per_eager_pair": eager_ms,
+            "graph_nodes": graph_nodes(call.graph), **call.stats,
+            "wall_s": time.perf_counter() - t0, "card": card}
+    print("halo_flags " + json.dumps(line))
+    return line
 
 
 def cpi_of(out, i):
@@ -2323,6 +2443,7 @@ def sharded_graph_case(dev, root, name, timed=GRAPH_TIMED, n_prof=None,
 
     from blah2_tpu_torch.device import tree_map
     from blah2_tpu_torch.dsp import graph as graph_mod
+    from blah2_tpu_torch.ops.halo import halo_permute
     from blah2_tpu_torch.parallel.collectives import count_bytes
     from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
 
@@ -2404,6 +2525,7 @@ def sharded_graph_case(dev, root, name, timed=GRAPH_TIMED, n_prof=None,
         if j == 0:
             kept = tree_map(lambda t: t.cpu(), outs[0])
     replayed = moved(before)
+    halo_permute.check()
     check(replayed == {k: 3 * v for k, v in step.items()},
           f"sharded {name}: {replayed} counted in 3 replays, an eager step "
           f"{step}")
@@ -3182,10 +3304,7 @@ def phase_dryrun(card, visible):
                                     "extra")))
     check(torch.equal(pallas["db_map"], twin["db_map"]),
           "the halo kernel's map differs from the torch-ops halo's")
-    cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
-                           text=True, timeout=60).stdout.count("GPU ")
-    if visible is not None:
-        cards = min(cards, len([v for v in visible.split(",") if v]))
+    cards = visible_cards(visible)
     over_cards = None
     if cards >= 2:
         env = dict(os.environ, PYTHONPATH=ROOT)
@@ -3210,6 +3329,211 @@ def phase_dryrun(card, visible):
             "over_cards": over_cards, "wall_s": time.perf_counter() - t0,
             "card": card}
     print("dryrun " + json.dumps(line))
+    return line
+
+
+#: The multi-card graph phase: steps timed after warm-ups on each path (host
+#: clock to every card synchronised), and replays in all before the error
+#: word is read (at least 50).
+CARDS_TIMED = (20, 3)
+CARDS_REPLAYS = 60
+
+
+def visible_cards(visible):
+    """The cards of the machine this script may use (``visible``: the
+    CUDA_VISIBLE_DEVICES it was started with)."""
+    cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                           text=True, timeout=60).stdout.count("GPU ")
+    if visible is not None:
+        cards = min(cards, len([v for v in visible.split(",") if v]))
+    return cards
+
+
+def worker_cards(argv) -> int:
+    """The multi-card graph on every card this process sees (up to four):
+    the default config's 1 x 4 step (Wiener, the halo kernel, the fused
+    detector), one rank a card on four cards (two a card on two), eager
+    and as one CUDA graph over the cards. On three batches the replays'
+    products the eager step's bits, an earlier product unchanged by later
+    replays, both kernels' launches counted once a replay (6 halo and 1
+    row-block launches a card); the profiler's records of one replay per
+    card; ms a step on each path; CARDS_REPLAYS replays in all, then the
+    halo kernel's error word 0 and every semaphore consumed. Writes one
+    JSON object to ``--out``."""
+    import argparse
+
+    import torch
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.device import tree_map
+    from blah2_tpu_torch.dsp import graph as graph_mod
+    from blah2_tpu_torch.ops.detect import detect
+    from blah2_tpu_torch.ops.halo import halo_permute
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    t0 = time.perf_counter()
+    n = min(torch.cuda.device_count(), 4)
+    cards = [torch.device("cuda", i) for i in range(n)]
+    devices = [cards[r * n // 4] for r in range(4)]
+    mesh = make_radar_mesh(1, 4, devices=devices)
+    cfg = load_config(os.path.join(ROOT, "config", "config.yml"))
+    pipes = {graph: ShardedCpiPipeline(cfg, mesh, halo_backend="pallas",
+                                       use_fused_detect=True, graph=graph)
+             for graph in (False, "auto")}
+    eager, pipe = pipes[False], pipes["auto"]
+    check(pipe.graph and not eager.graph, pipe.graph_reason)
+    planes = [eager.shard_inputs(x, y) for x, y in scene_batches(cfg, 1)]
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def moved(before):
+        return {k: v - before[k] for k, v in graph_mod.counts().items()
+                if v != before[k]}
+
+    def peaks(base):
+        return [(torch.cuda.max_memory_allocated(d) - base[i]) / 2 ** 20
+                for i, d in enumerate(cards)]
+
+    def reset():
+        sync()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        return [torch.cuda.memory_allocated(d) for d in cards]
+
+    base = reset()
+    want = []
+    for p in planes:
+        before = graph_mod.counts()
+        want.append(eager(*p))
+        step = moved(before)
+    sync()
+    peak_eager = peaks(base)
+    check(step.get("halo") == 6 * n and step.get("detect_rows") == n,
+          f"an eager step over {n} cards counts {step}")
+    base = reset()
+    first = pipe(*planes[0])
+    (call,) = pipe.graphs.values()
+    check(same_bits(first, want[0]), "cards: the warm-up differs from the "
+          "eager step")
+    check(call.counts == step, f"cards: the graph holds {call.counts}, an "
+          f"eager step {step}")
+    # The main path: counts at 0 just before, read just after.
+    halo_permute.launches = detect.launches = detect.row_launches = 0
+    outs = []
+    for j, p in enumerate(planes):
+        outs.append(pipe(*p))
+        if j == 0:
+            sync()
+            kept = tree_map(lambda t: t.cpu(), outs[0])
+    sync()
+    halo, rows = halo_permute.launches, detect.row_launches
+    peak_graph = peaks(base)
+    check(halo == 3 * 6 * n and rows == 3 * n,
+          f"cards: {halo} halo and {rows} row-block launches in 3 replays")
+    for j, (got, ref) in enumerate(zip(outs, want)):
+        check(same_bits(got, ref), f"cards: batch {j}: the replay's "
+              f"products differ from the eager step's")
+    check(same_bits(outs[0], kept), "cards: a later replay changed an "
+          "earlier step's products")
+
+    # One replay profiled: each card's device records and busy time.
+    def window():
+        before = halo_permute.launches
+        _, trace = profile_window(lambda: pipe(*planes[1]))
+        per = {}
+        for ev in trace["kernel"] + trace["gpu_memcpy"] + trace["gpu_memset"]:
+            d = str(ev.get("args", {}).get("device", 0))
+            c, us = per.get(d, (0, 0.0))
+            per[d] = (c + 1, us + ev["dur"])
+        seen = sum(1 for ev in trace["kernel"]
+                   if "halo_permute" in ev["name"])
+        return per, shortfall(seen, halo_permute.launches - before,
+                              "halo launches")
+
+    per_card = profiled_whole(window, f"graph over {n} cards")
+
+    def host_ms(fn, n_steps, warm):
+        for _ in range(warm):
+            fn()
+        sync()
+        times = []
+        for _ in range(n_steps):
+            t = time.perf_counter()
+            fn()
+            sync()
+            times.append(1e3 * (time.perf_counter() - t))
+        return {"median": statistics.median(times), "min": min(times),
+                "max": max(times)}
+
+    steps, warm = CARDS_TIMED
+    t_graph = host_ms(lambda: pipe(*planes[2]), steps, warm)
+    t_eager = host_ms(lambda: eager(*planes[2]), steps, warm)
+    more = CARDS_REPLAYS - call.replays
+    for k in range(max(0, more)):
+        got = pipe(*planes[k % 3])
+        if k % 10 == 0:
+            check(same_bits(got, want[k % 3]), "cards: a later replay "
+                  "differs from the eager step")
+    sync()
+    halo_permute.check()
+    word = halo_permute.error()
+    flags = [int(w.abs().sum()) for w in halo_permute.flag_words(mesh)]
+    check(word == 0, f"cards: halo error word {word}")
+    check(not any(flags), f"cards: semaphores {flags} after the replays")
+    busy = max(us for _, us in per_card.values()) / 1e3
+    line = {"cards": n, "mesh": "1x4", "graph_reason": pipe.graph_reason,
+            "halo_launches": halo, "row_block_launches": rows,
+            "per_replay": call.counts, "replays": call.replays,
+            "error_word": word, "semaphores_after": flags,
+            "graph_nodes": graph_nodes(call.graph),
+            "records_per_card": {d: c for d, (c, _) in per_card.items()},
+            "busy_ms_per_card": {d: us / 1e3
+                                 for d, (_, us) in per_card.items()},
+            "ms_per_step_graph": t_graph, "ms_per_step_eager": t_eager,
+            "idle_share_graph": 1.0 - busy / t_graph["median"],
+            "idle_share_eager": 1.0 - busy / t_eager["median"],
+            **call.stats,
+            "peak_mib_eager": peak_eager, "peak_mib_graph": peak_graph,
+            "bits": "equal on 3 batches of seeds " + ", ".join(
+                map(str, GRAPH_SEEDS)),
+            "wall_s": time.perf_counter() - t0}
+    with open(args.out, "w") as f:
+        json.dump(line, f)
+    return 0
+
+
+def phase_graph_cards(card, visible):
+    """The sharded step as one CUDA graph over several cards, in a process
+    that sees every card of the machine (worker_cards), where it has two or
+    more; with one card a note and nothing run. Prints one ``graph_cards
+    {...}`` line."""
+    n = visible_cards(visible)
+    if n < 2:
+        print("note: one card: the graph over several cards is not run")
+        return None
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        env["CUDA_VISIBLE_DEVICES"] = visible
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cards.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker", "cards",
+             "--out", out], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        check(proc.returncode == 0, f"the graph over {n} cards exited "
+              f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+              f"{proc.stderr[-3000:]}")
+        with open(out) as f:
+            line = json.load(f)
+    line["card"] = card
+    print("graph_cards " + json.dumps(line))
     return line
 
 
@@ -3276,6 +3600,8 @@ def worker_main(argv) -> int:
 
     if argv[:2] == ["--worker", "soak"]:
         return worker_soak(argv[2:])
+    if argv[:2] == ["--worker", "cards"]:
+        return worker_cards(argv[2:])
     ap = argparse.ArgumentParser()
     ap.add_argument("--worker", choices=("step", "cli"), required=True)
     ap.add_argument("--coordinator", required=True)
@@ -3340,6 +3666,7 @@ def main() -> int:
 
     err, rows_err = timed("kernel_vs_plain", phase_kernel_vs_plain, dev)
     halo_err = timed("halo_vs_plain", phase_halo_vs_plain, dev)
+    flags = timed("halo_flags", phase_halo_flags, dev, card)
     timed("golden", phase_golden, dev, ROOT)
     pipe, packed, launches, _ = timed("default", phase_default, dev, ROOT)
     # The runtime's profile first: in whole runs of this script a profiler
@@ -3368,6 +3695,7 @@ def main() -> int:
     topo = timed("topology", phase_topology, dev, card)
     sup = timed("supervised_soak", phase_supervised_soak, card)
     dry = timed("dryrun", phase_dryrun, card, visible)
+    over_cards = timed("graph_cards", phase_graph_cards, card, visible)
     proj = timed("projection", phase_projection, dev, card)
 
     graph_kernels = sh_graph["wiener"]["kernels_in_replay"]
@@ -3423,6 +3751,22 @@ def main() -> int:
               f"capture {v['capture_ms']:.1f} ms, instantiate "
               f"{v['instantiate_ms']:.1f} ms, {v['graph_nodes']} nodes; "
               f"{v['graph_reason']}")
+    print(f"halo flags, 1 x 4 on one card on {card}: {flags['replays']} "
+          f"replays the bits of halo_permute_plain, error word "
+          f"{flags['error_word']}; {flags['device_us_per_launch']:.2f} us "
+          f"device a launch, {flags['ms_per_replay']['median'] * 1e3:.2f} "
+          f"us a replay of two launches by events, "
+          f"{flags['ms_per_eager_pair']['median'] * 1e3:.2f} eager")
+    if over_cards:
+        print(f"sharded graph over {over_cards['cards']} cards, 1 x 4 on "
+              f"{card}: {over_cards['ms_per_step_graph']['median']:.3f} ms "
+              f"a step replayed, "
+              f"{over_cards['ms_per_step_eager']['median']:.3f} eager (host "
+              f"clock to every card synchronised); "
+              f"{over_cards['graph_nodes']} nodes, records a card "
+              f"{over_cards['records_per_card']}; error word "
+              f"{over_cards['error_word']} after {over_cards['replays']} "
+              f"replays")
     for k, v in alt.items():
         print(f"{k}, default config on {card}: "
               f"{v['ms_per_cpi']['median']:.3f} ms/CPI median of 10 "
@@ -3494,7 +3838,9 @@ def main() -> int:
             **{f"sharded_graph_{k}_per_replay":
                v["per_replay"].get("detect_rows", 0)
                for k, v in sh_graph.items()},
-            "multiprocess_step": mp["detect_launches"]},
+            "multiprocess_step": mp["detect_launches"],
+            **({"graph_cards_replays": over_cards["row_block_launches"]}
+               if over_cards else {})},
         "max_abs_err": max(rows_err, graph_kernels["rows_max_abs_err"]),
         "ms": min(sh["rows_ms"]),
         "plain_ms": min(sh["rows_plain_ms"]),
@@ -3521,7 +3867,10 @@ def main() -> int:
             "runtime_multiprocess": mp_rt["halo_launches"],
             **{f"bench_{k}": v for k, v in bench_halo.items()},
             "dryrun": dry["halo_launches"],
-            "dryrun_by_cell": dry["halo_launches_by_cell"]},
+            "dryrun_by_cell": dry["halo_launches_by_cell"],
+            "halo_flags_replays": flags["launches_in_replays"],
+            **({"graph_cards_replays": over_cards["halo_launches"]}
+               if over_cards else {})},
         "pairs_by_route": {"multiprocess_step": mp["pairs"],
                            "runtime_multiprocess": mp_rt["pairs"]},
         "max_abs_err": max(halo_err, graph_kernels["halo_max_abs_err"]),

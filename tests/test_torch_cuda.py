@@ -316,8 +316,7 @@ def test_sharded_pipeline_across_cards(card):
     """A 1 x n mesh over n >= 2 cards (up to 4): the halo kernel writes
     into the peer cards' buffers, and the products equal the ppermute
     backend's, and a one-card mesh's within float32 rounding. Over the
-    cards the step stays eager and says why, and refuses a graph; on the
-    one card it is captured."""
+    cards, as on the one card, the step is captured and says so."""
     from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
     from blah2_tpu_torch.config import config_from_dict
     from blah2_tpu_torch.ops.halo import halo_permute
@@ -349,11 +348,10 @@ def test_sharded_pipeline_across_cards(card):
                                     1, n, devices=[card] * n), "pallas")):
         sp = ShardedCpiPipeline(cfg, mesh, halo_backend=backend,
                                 use_fused_detect=True)
-        assert sp.graph is (name == "one"), sp.graph_reason
+        assert sp.graph, sp.graph_reason
         if name != "one":
-            assert sp.graph_reason.startswith(f"the ranks lie on {n} cards")
-            with pytest.raises(ValueError, match="cards"):
-                ShardedCpiPipeline(cfg, mesh, graph=True)
+            assert sp.graph_reason == "every rank of this process on " + \
+                ", ".join(f"cuda:{i}" for i in range(n)) + ", one process"
         launches = halo_permute.launches
         outs[name] = sp(*sp.shard_inputs(x, y))
         for i in range(n):
@@ -885,11 +883,13 @@ def _graph_config(name):
     return config_from_dict(d)
 
 
-def _scratch(call, rows=False):
-    """The detect kernel's scratch on a StaticCall's capture stream (its
-    row-block mode's, with ``rows``): what the graph's launches use."""
-    return tdetect.detect.scratch(call.device.index,
-                                  call.stream.cuda_stream, rows=rows)
+def _scratch(call, rows=False, device=None):
+    """The detect kernel's scratch on a StaticCall's capture stream of
+    ``device`` (the home card by default; its row-block mode's, with
+    ``rows``): what the graph's launches there use."""
+    index = (device or call.device).index
+    return tdetect.detect.scratch(index, call.streams[index].cuda_stream,
+                                  rows=rows)
 
 
 @pytest.mark.cuda
@@ -1000,6 +1000,154 @@ _SHARDED_GRAPH = {
 }
 
 
+def _sharded_graph_scene(name, shape):
+    """The config and three different batches of the sharded graph tests
+    (planes made by the pipeline ``shard_inputs`` is given)."""
+    import copy
+
+    from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
+    from blah2_tpu_torch.config import config_from_dict
+
+    d = {"capture": {"fs": 80_000, "fc": 204_640_000},
+         "process": {
+             "data": {"cpi": 0.2},
+             "ambiguity": {"delayMin": -5, "delayMax": 60,
+                           "dopplerMin": -100, "dopplerMax": 100},
+             "clutter": {"enable": True, "delayMin": -5, "delayMax": 30},
+             "detection": {"enable": True, "pfa": 1e-5, "nGuard": 2,
+                           "nTrain": 6, "minDelay": 5, "minDoppler": 15,
+                           "nCentroid": 6}}}
+    changes, _ = _SHARDED_GRAPH[name]
+    d = copy.deepcopy(d)
+    for stage, kv in changes.items():
+        d["process"].setdefault(stage, {}).update(kv)
+    cfg = config_from_dict(d)
+    batches = []
+    for seed in (7, 8, 9):
+        xs, ys = [], []
+        for k in range(shape[0]):
+            x, y = synthetic_cpi(cfg.n_samples, cfg.capture.fs,
+                                 [TargetSpec(20, -44.0, 0.1)],
+                                 clutter_amplitude=2.0,
+                                 noise_amplitude=1e-3, seed=seed + 10 * k)
+            xs.append(x)
+            ys.append(y)
+        batches.append((np.stack(xs), np.stack(ys)))
+    return cfg, batches
+
+
+def _equal_products(a, b):
+    for u, v in zip(a, b, strict=True):
+        if isinstance(u, tuple):
+            _equal_products(u, v)
+        elif u is None or v is None:
+            assert u is None and v is None
+        else:
+            if u.is_complex():
+                u, v = torch.view_as_real(u), torch.view_as_real(v)
+            assert u.dtype == v.dtype and torch.equal(u, v)
+
+
+def _sharded_graph_case(devices, name, shape, more_replays=0, churn=False):
+    """The sharded step on ``devices`` (one a rank) captured at its first
+    call and replayed on three different batches: each product the eager
+    step's bits, an earlier product unchanged by a later replay, the halo
+    kernel's launches and the detect kernel's counted once a replay, the
+    row-block mode's ticket counters zero after each on every card, no
+    output of the graph in its input buffers. ``more_replays`` replays
+    more, each the eager bits, then the halo kernel's error word 0 and its
+    semaphores all consumed; with ``churn``, between replays another
+    workload allocates and fills memory on every card and keeps it, and
+    the replays leave it as it was. Returns the graph's StaticCall."""
+    from blah2_tpu_torch.dsp import graph as graph_mod
+    from blah2_tpu_torch.ops.halo import halo_permute
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+
+    cfg, scene = _sharded_graph_scene(name, shape)
+    kw = dict(_SHARDED_GRAPH[name][1])
+    batch_ranks = kw.pop("nlms_batch_ranks", True)
+    mesh = make_radar_mesh(*shape, devices=devices)
+    cards = mesh.distinct_devices()
+    pipes = {}
+    for graph in (False, "auto"):
+        sp = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas", graph=graph,
+                                **kw)
+        sp.nlms_batch_ranks = batch_ranks
+        pipes[graph] = sp
+    eager, pipe = pipes[False], pipes["auto"]
+    assert pipe.graph and not eager.graph, pipe.graph_reason
+    assert all(str(d) in pipe.graph_reason for d in cards)
+    batches = [pipe.shard_inputs(x, y) for x, y in scene]
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    want = []
+    for planes in batches:
+        before = graph_mod.counts()
+        want.append(eager(*planes))
+        sync()
+        step = {k: v - before[k] for k, v in graph_mod.counts().items()}
+    _equal_products(pipe(*batches[0]), want[0])  # the capture's warm-up
+    (call,) = pipe.graphs.values()
+    assert call.cards == cards
+    assert call.counts == {k: v for k, v in step.items() if v}
+    fused = pipe.fused_detector is not None and pipe._row_shard
+    # The clutter filter's shifts (three for ECA-B and NLMS), the fused
+    # detector's two row halos: one launch a card each.
+    shifts = 3 if name.startswith(("eca-b", "nlms")) else 4
+    assert step["halo"] == (shifts + 2 * fused) * len(cards)
+    assert (step["detect"], step["detect_rows"]) == \
+        (fused * len(cards), fused * len(cards))
+    inputs = [(b.data_ptr(), b.data_ptr() + b.numel() * b.element_size())
+              for b in call.inputs if b is not None]
+    for t in _leaves_of(call.outputs):
+        lo = t.data_ptr()
+        assert all(lo >= hi or lo + t.numel() * t.element_size() <= a
+                   for a, hi in inputs)
+    blocks = {d: sum(1 for r in mesh.local_ranks if mesh.devices[r] == d)
+              * (shape[0] // mesh.shape["cpi"]) for d in cards}
+    kept_fill = []
+    outs = []
+    before = graph_mod.counts()
+    order = [1, 2, 0] + [k % 3 for k in range(more_replays)]
+    for j, k in enumerate(order):
+        outs.append(pipe(*batches[k]))
+        if churn:
+            # Another workload on every card: memory taken and kept.
+            kept_fill.append([torch.full((1 << 22,), float(j), device=d)
+                              for d in cards])
+        if fused and j < 3:
+            sync()
+            for d in cards:
+                assert int(_scratch(call, rows=True, device=d)[:blocks[d]]
+                           .abs().sum()) == 0
+        if len(outs) == 1:
+            kept = [t.clone() for t in _leaves_of(outs[0])]
+        if j >= 3:
+            _equal_products(outs[-1], want[k])
+            outs[-1] = None
+    sync()
+    assert {k: v - before[k] for k, v in graph_mod.counts().items()} == \
+        {k: len(order) * v for k, v in step.items()}
+    for out, k in zip(outs[:3], (1, 2, 0)):
+        _equal_products(out, want[k])
+    for a, b in zip(_leaves_of(outs[0]), kept):
+        assert torch.equal(a, b)
+    assert not torch.equal(outs[0].db_map, outs[1].db_map)
+    for j, fills in enumerate(kept_fill):
+        for t in fills:
+            assert bool((t == float(j)).all()), "a replay wrote memory " \
+                "that another workload took after the capture"
+    assert halo_permute.error() == 0
+    for w in halo_permute.flag_words(mesh):
+        assert not bool(w.any())
+    assert call.replays == len(order)
+    return call
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
 @pytest.mark.parametrize("name", sorted(_SHARDED_GRAPH))
@@ -1011,100 +1159,55 @@ def test_sharded_graph_replays_give_the_eager_bits_on_card(card, name,
     kernel's launches and the detect kernel's counted once a replay, the
     row-block mode's ticket counters zero after each, no output of the
     graph in its input buffers."""
-    import copy
+    _sharded_graph_case([card] * 4, name, shape)
 
-    from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
-    from blah2_tpu_torch.config import config_from_dict
-    from blah2_tpu_torch.dsp import graph as graph_mod
+
+def _cards_or_skip(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices, {torch.cuda.device_count()} "
+                    f"visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cards", [2, 4], ids=["2cards", "4cards"])
+@pytest.mark.parametrize("name", ["wiener-fused", "eca-b", "nlms", "os"])
+def test_sharded_graph_over_cards_gives_the_eager_bits(card, name, n_cards):
+    """The 1 × 4 step over two or four cards of one process captured as one
+    graph (one capture stream a card, the halo kernel's flagged launches
+    inside it) and replayed: three batches give the eager step's bits, a
+    later replay leaves an earlier product unchanged, one halo launch a
+    card and shift (6 a card in a fused step); the Wiener step then 50
+    replays more, error word 0 and every semaphore consumed, with another
+    workload allocating on every card between replays."""
+    cards = _cards_or_skip(n_cards)
+    devices = [cards[r * n_cards // 4] for r in range(4)]
+    more = 50 if name == "wiener-fused" else 0
+    call = _sharded_graph_case(devices, name, (1, 4), more_replays=more,
+                               churn=name == "wiener-fused")
+    if name == "wiener-fused":
+        assert call.counts["halo"] == 6 * n_cards
+
+
+@pytest.mark.cuda
+def test_calibrate_row_shard_replays_over_cards(card):
+    """calibrate_row_shard on a 1 × 4 mesh over four cards: both layouts
+    captured (one graph each) and the trials replayed, with no code of its
+    own; the winner replays on."""
     from blah2_tpu_torch.parallel.mesh import make_radar_mesh
-    from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
+    from blah2_tpu_torch.parallel.sharded import calibrate_row_shard
 
-    d = {"capture": {"fs": 80_000, "fc": 204_640_000},
-         "process": {
-             "data": {"cpi": 0.2},
-             "ambiguity": {"delayMin": -5, "delayMax": 60,
-                           "dopplerMin": -100, "dopplerMax": 100},
-             "clutter": {"enable": True, "delayMin": -5, "delayMax": 30},
-             "detection": {"enable": True, "pfa": 1e-5, "nGuard": 2,
-                           "nTrain": 6, "minDelay": 5, "minDoppler": 15,
-                           "nCentroid": 6}}}
-    changes, kw = _SHARDED_GRAPH[name]
-    d = copy.deepcopy(d)
-    for stage, kv in changes.items():
-        d["process"].setdefault(stage, {}).update(kv)
-    cfg = config_from_dict(d)
-    kw = dict(kw)
-    batch_ranks = kw.pop("nlms_batch_ranks", True)
-    mesh = make_radar_mesh(*shape, devices=[card] * 4)
-    pipes = {}
-    for graph in (False, "auto"):
-        sp = ShardedCpiPipeline(cfg, mesh, halo_backend="pallas", graph=graph,
-                                **kw)
-        sp.nlms_batch_ranks = batch_ranks
-        pipes[graph] = sp
-    eager, pipe = pipes[False], pipes["auto"]
-    assert pipe.graph and not eager.graph, pipe.graph_reason
-    batches = []
-    for seed in (7, 8, 9):
-        xs, ys = [], []
-        for k in range(shape[0]):
-            x, y = synthetic_cpi(cfg.n_samples, cfg.capture.fs,
-                                 [TargetSpec(20, -44.0, 0.1)],
-                                 clutter_amplitude=2.0,
-                                 noise_amplitude=1e-3, seed=seed + 10 * k)
-            xs.append(x)
-            ys.append(y)
-        batches.append(pipe.shard_inputs(np.stack(xs), np.stack(ys)))
-
-    def equal(a, b):
-        for u, v in zip(a, b, strict=True):
-            if isinstance(u, tuple):
-                equal(u, v)
-            elif u is None or v is None:
-                assert u is None and v is None
-            else:
-                if u.is_complex():
-                    u, v = torch.view_as_real(u), torch.view_as_real(v)
-                assert u.dtype == v.dtype and torch.equal(u, v)
-
-    want = []
-    for planes in batches:
-        before = graph_mod.counts()
-        want.append(eager(*planes))
-        torch.cuda.synchronize()
-        step = {k: v - before[k] for k, v in graph_mod.counts().items()}
-    equal(pipe(*batches[0]), want[0])  # the capture's warm-up
+    cards = _cards_or_skip(4)
+    cfg, scene = _sharded_graph_scene("wiener-fused", (1, 4))
+    cal = calibrate_row_shard(cfg, make_radar_mesh(1, 4, devices=cards),
+                              n_trials=2, halo_backend="pallas",
+                              use_fused_detect=True)
+    pipe = cal["pipeline"]
     (call,) = pipe.graphs.values()
-    assert call.counts == {k: v for k, v in step.items() if v}
-    fused = pipe.fused_detector is not None and pipe._row_shard
-    # The clutter filter's shifts (three for ECA-B and NLMS), the fused
-    # detector's two row halos.
-    shifts = 3 if name.startswith(("eca-b", "nlms")) else 4
-    assert step["halo"] == shifts + 2 * fused
-    assert (step["detect"], step["detect_rows"]) == (fused, fused)
-    inputs = [(b.data_ptr(), b.data_ptr() + b.numel() * b.element_size())
-              for b in call.inputs if b is not None]
-    for t in _leaves_of(call.outputs):
-        lo = t.data_ptr()
-        assert all(lo >= hi or lo + t.numel() * t.element_size() <= a
-                   for a, hi in inputs)
-    outs = []
-    before = graph_mod.counts()
-    for k in (1, 2, 0):
-        outs.append(pipe(*batches[k]))
-        if fused:
-            torch.cuda.synchronize()
-            assert int(_scratch(call, rows=True)[:4].abs().sum()) == 0
-        if len(outs) == 1:
-            kept = [t.clone() for t in _leaves_of(outs[0])]
-    torch.cuda.synchronize()
-    assert {k: v - before[k] for k, v in graph_mod.counts().items()} == \
-        {k: 3 * v for k, v in step.items()}
-    for out, k in zip(outs, (1, 2, 0)):
-        equal(out, want[k])
-    for a, b in zip(_leaves_of(outs[0]), kept):
-        assert torch.equal(a, b)
-    assert not torch.equal(outs[0].db_map, outs[1].db_map)
+    assert pipe.graph and call.cards == cards and call.replays == 2
+    planes = pipe.shard_inputs(*scene[0])
+    out = pipe(*planes)
+    assert call.replays == 3 and bool(torch.isfinite(out.db_map).all())
 
 
 def _leaves_of(tree):
@@ -1118,9 +1221,8 @@ def _leaves_of(tree):
     return out
 
 
-@pytest.mark.cuda
-def test_mesh_runtime_replays_the_step_on_card(card):
-    """The mesh runtime on 1 × 4 ranks of the card replays the sharded
+def _mesh_runtime_case(devices):
+    """The mesh runtime on 1 × 4 ranks of ``devices`` replays the sharded
     step by default, from its second batch on, and emits the eager loop's
     products bit for bit."""
     from blah2_tpu_torch.capture.synthetic import TargetSpec, synthetic_cpi
@@ -1147,7 +1249,7 @@ def test_mesh_runtime_replays_the_step_on_card(card):
         windows.append((x.astype(np.complex64), y.astype(np.complex64)))
     runs = {}
     for graph in ("auto", False):
-        rt = RadarRuntime(cfg, mesh=make_radar_mesh(1, 4, devices=[card] * 4),
+        rt = RadarRuntime(cfg, mesh=make_radar_mesh(1, 4, devices=devices),
                           halo_backend="pallas", graph=graph)
         assert rt.sharded.graph is (graph == "auto")
         outs = []
@@ -1170,3 +1272,77 @@ def test_mesh_runtime_replays_the_step_on_card(card):
     for a, b in zip(outs, runs[False][0]):
         for u, v in zip(_leaves_of(a), _leaves_of(b), strict=True):
             assert np.array_equal(u, v)
+
+
+@pytest.mark.cuda
+def test_mesh_runtime_replays_the_step_on_card(card):
+    """The mesh runtime on 1 × 4 ranks of the card replays the sharded
+    step by default, from its second batch on, and emits the eager loop's
+    products bit for bit."""
+    _mesh_runtime_case([card] * 4)
+
+
+@pytest.mark.cuda
+def test_mesh_runtime_replays_the_step_over_four_cards(card):
+    """The mesh runtime on 1 × 4 ranks, one a card, replays the step over
+    the four cards from its second batch on with no code of its own, and
+    emits the eager loop's products bit for bit."""
+    _mesh_runtime_case(_cards_or_skip(4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 4)], ids=["1x4", "2x4"])
+def test_halo_flags_on_one_card_replay_in_a_graph(card, shape):
+    """The one-card plan that takes the flag protocol (one launch whose
+    blocks wait on one another), masked to the left and circular to the
+    right on strided complex64 slices, captured in a CUDA graph and
+    replayed 100 times on new payloads: each replay the bits of
+    halo_permute_plain, error word 0, every semaphore consumed."""
+    from blah2_tpu_torch.ops.halo import HaloKernel, halo_permute_plain
+    from blah2_tpu_torch.parallel.mesh import make_radar_mesh
+
+    kernel = HaloKernel(flags_on_one_card=True, name="halo_flags_test")
+    n = shape[0] * shape[1]
+    mesh = make_radar_mesh(*shape, devices=[card] * n)
+    gen = torch.Generator(device=card).manual_seed(3)
+    blocks = [torch.empty((2, 1000), dtype=torch.complex64, device=card)
+              for _ in range(n)]
+
+    def parts():
+        return [b[..., :409] for b in blocks], [b[..., -409:] for b in blocks]
+
+    def body():
+        left, right = parts()
+        return (kernel(left, mesh, to_left=True, collective_id=1,
+                       mask_edge=True)
+                + kernel(right, mesh, to_left=False, collective_id=2))
+
+    def want():
+        left, right = parts()
+        return (halo_permute_plain(left, mesh, to_left=True, mask_edge=True)
+                + halo_permute_plain(right, mesh, to_left=False))
+
+    for b in blocks:
+        b.copy_(torch.randn(b.shape, dtype=b.dtype, device=card,
+                            generator=gen))
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        body()  # the plans and their windows, outside the capture
+    torch.cuda.current_stream(card).wait_stream(side)
+    launches = kernel.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = body()
+    assert kernel.launches - launches == 2  # one a call: one card
+    for _ in range(100):
+        for b in blocks:
+            b.copy_(torch.randn(b.shape, dtype=b.dtype, device=card,
+                                generator=gen))
+        graph.replay()
+        for g, w in zip(outs, want()):
+            assert torch.equal(torch.view_as_real(g), torch.view_as_real(w))
+    torch.cuda.synchronize(card)
+    assert kernel.error() == 0
+    words = kernel.flag_words(mesh)
+    assert len(words) == 2 and all(not bool(w.any()) for w in words)

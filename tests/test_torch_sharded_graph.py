@@ -18,9 +18,9 @@ the inputs copied, the outputs cloned, no state carried from an earlier
 step, the halo kernel's launches and pairs and the collectives' bytes
 counted once a replay and taken back from the capture, one graph per
 layout; and through it the mesh runtime emits the eager loop's products.
-Where the step cannot be a graph (the CPU, several cards, several
-processes) ``graph="auto"`` runs eagerly and says why, and ``graph=True``
-raises. The card's own checks are ``tests/test_torch_cuda.py``'s
+Where the step cannot be a graph (the CPU, a gloo job) ``graph="auto"``
+runs eagerly and says why, and ``graph=True`` raises; over several cards
+and in NCCL jobs it captures and says so, from the layout alone. The card's own checks are ``tests/test_torch_cuda.py``'s
 ``sharded_graph`` cases and ``chip_smoke.py`` ``phase_sharded_graph``."""
 
 from __future__ import annotations
@@ -424,30 +424,112 @@ def test_graphs_need_a_card():
     assert graph_mode(mesh, False) == (False, "graph=False")
 
 
-def test_several_cards_stay_eager_and_say_why():
-    """A 1 × 4 mesh over two cards (described, not built on: no card
-    here): "auto" is eager with the reason, True raises before the
-    pipeline touches a card."""
-    mesh = make_radar_mesh(1, 4, devices=[torch.device("cuda", 0)] * 2
-                           + [torch.device("cuda", 1)] * 2)
-    on, why = graph_mode(mesh, "auto")
-    assert not on and why.startswith("the ranks lie on 2 cards")
-    with pytest.raises(ValueError, match="2 cards.*epoch"):
-        ShardedCpiPipeline(config_from_dict(SCENE), mesh, graph=True)
+@pytest.mark.parametrize("cards", [2, 4])
+def test_several_cards_capture_and_say_so(cards):
+    """A 1 × 4 mesh over two or four cards of one process (described, not
+    built on: no card here): "auto" and True capture, and the reason names
+    the cards."""
+    devices = [torch.device("cuda", r * cards // 4) for r in range(4)]
+    mesh = make_radar_mesh(1, 4, devices=devices)
+    names = ", ".join(f"cuda:{c}" for c in range(cards))
+    for graph in ("auto", True):
+        on, why = graph_mode(mesh, graph)
+        assert on and why == f"every rank of this process on {names}, " \
+            f"one process"
+
+
+def _as_job(monkeypatch, backend, index=0, count=2, reason=""):
+    """The meshes built next those of process ``index`` of a ``backend``
+    job (as ``test_torch_multiprocess.py``'s ``as_process``)."""
+    monkeypatch.setattr(distributed, "process_count", lambda: count)
+    monkeypatch.setattr(distributed, "process_index", lambda: index)
+    monkeypatch.setattr(distributed, "job", lambda: distributed.Job(
+        backend, reason, ("",) * count, (), None))
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_nccl_processes_capture_and_say_so(monkeypatch, index):
+    """Each process of a two-process NCCL job, two cards of its own: both
+    decide to capture from the layout alone, each naming its cards and its
+    place in the job."""
+    _as_job(monkeypatch, "nccl", index)
+    own = [torch.device("cuda", 2 * index + k) for k in range(2)]
+    mesh = make_radar_mesh(1, 4, devices=own)
+    for graph in ("auto", True):
+        on, why = graph_mode(mesh, graph)
+        assert on and why == (
+            f"every rank of this process on cuda:{2 * index}, "
+            f"cuda:{2 * index + 1}, process {index} of 2: the NCCL "
+            f"payloads captured")
 
 
 def test_several_processes_stay_eager_and_say_why(monkeypatch):
-    """Process 0 of two (the mesh stand-in of
+    """Process 0 of two in a gloo job (the mesh stand-in of
     ``test_torch_multiprocess.py``'s ``as_process``): "auto" builds an
-    eager pipeline that says why; True raises."""
-    monkeypatch.setattr(distributed, "process_count", lambda: 2)
-    monkeypatch.setattr(distributed, "process_index", lambda: 0)
-    monkeypatch.setattr(distributed, "job", lambda: distributed.Job(
-        "gloo", "", ("", ""), (), None))
+    eager pipeline that says why; True raises. Processes that share a
+    card are gloo too, and stay eager by the same rule."""
+    _as_job(monkeypatch, "gloo", reason="a process computes on the host")
     mesh = make_radar_mesh(1, 4, devices=["cpu"] * 2)
     assert mesh.process_count == 2
     sp = ShardedCpiPipeline(config_from_dict(SCENE), mesh)
     assert sp.graph is False
-    assert sp.graph_reason.startswith("the mesh spans 2 processes")
-    with pytest.raises(ValueError, match="2 processes.*host calls"):
+    assert sp.graph_reason.startswith(
+        "the mesh spans 2 processes over gloo (a process computes on the "
+        "host): the payloads travel through host memory")
+    with pytest.raises(ValueError, match="2 processes over gloo.*host "
+                       "memory"):
         ShardedCpiPipeline(config_from_dict(SCENE), mesh, graph=True)
+    _as_job(monkeypatch, "gloo", reason="processes share a card")
+    shared = make_radar_mesh(1, 4, devices=[torch.device("cuda", 0)] * 2)
+    on, why = graph_mode(shared)
+    assert not on and "over gloo (processes share a card)" in why
+    with pytest.raises(ValueError, match="over gloo"):
+        graph_mode(shared, True)
+
+
+def test_static_call_makes_each_buffer_on_its_inputs_device():
+    """Each static buffer lies on its input's device, like the input, and
+    a host input's on the home device (the call copies it in); the home
+    device comes first among the call's cards; a capture needs every one
+    of them to be a card."""
+    inputs = [torch.zeros(3, 2), None,
+              torch.zeros(4, dtype=torch.complex64, device="meta"),
+              torch.zeros(5, dtype=torch.float64, device="meta")]
+    call = StaticCall(lambda *b: b, inputs, torch.device("cpu"))
+    assert [None if b is None else (b.device.type, tuple(b.shape), b.dtype)
+            for b in call.inputs] == [
+        ("cpu", (3, 2), torch.float32), None,
+        ("meta", (4,), torch.complex64), ("meta", (5,), torch.float64)]
+    assert call.cards == [torch.device("cpu"), torch.device("meta")]
+    with pytest.raises(ValueError, match="needs a card.*cpu, meta"):
+        call.capture(*inputs)
+    home = StaticCall(lambda *b: b, inputs[:1], torch.device("meta"))
+    assert home.inputs[0].device.type == "meta"
+    assert home.cards == [torch.device("meta")]
+
+
+def test_shutdown_frees_the_registered_graphs_before_the_groups_go(
+        monkeypatch):
+    """A graph that captured NCCL calls is freed when the job is left,
+    before its groups go (their communicator waits for such graphs); a
+    graph already dropped is not kept alive for it."""
+    events = []
+    monkeypatch.setattr(distributed, "_job", distributed.Job(
+        "nccl", "", ("",), (), None))
+    monkeypatch.setattr(torch.distributed, "barrier",
+                        lambda: events.append("barrier"))
+    monkeypatch.setattr(torch.distributed, "destroy_process_group",
+                        lambda: events.append("destroy"))
+    calls = [StaticCall(lambda *b: b[0], [torch.zeros(2)],
+                        torch.device("cpu")) for _ in range(2)]
+    for call in calls:
+        call.graph, call.outputs = object(), torch.ones(2)
+        distributed.at_shutdown(call.release)
+    distributed.at_shutdown(lambda: events.append("hook"))
+    gone = calls.pop()
+    del gone
+    distributed.shutdown()
+    assert events == ["hook", "barrier", "destroy"]
+    assert calls[0].graph is None and calls[0].outputs is None
+    assert distributed.job() is None and distributed._at_shutdown == []
+    assert torch.equal(calls[0](torch.ones(2)), torch.ones(2))
