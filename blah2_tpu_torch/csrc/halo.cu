@@ -43,32 +43,40 @@
 //
 // Across cards (`sys_scope` != 0), where a peer's stream is not ordered
 // with ours (another card of the process, or a card of another process on
-// the host, reached through CUDA IPC), the TPU kernel's barrier: counting
-// semaphores (pltpu.semaphore_signal with inc=1, then semaphore_wait, which
-// consumes what it waited for), one block per rank (a grid of (1, blocks)).
-// Block b, sending rank r's payload to rank q:
+// the host, reached through CUDA IPC), the TPU kernel's barrier:
+// semaphores that are signalled and then consumed by the wait
+// (pltpu.semaphore_signal, then semaphore_wait, which takes away what it
+// waited for), one block per rank (a grid of (1, blocks)). Block b,
+// sending rank r's payload to rank q:
 //
-//   1. arrive: thread 0 signals arrive[r] (adds 1, release), then consumes
-//      arrive[q]: waits until it is >= 1 (acquire) and takes 1 away. Rank
-//      q's block runs only after every earlier kernel on q's stream, so
-//      once q has arrived nothing earlier still reads q's receive buffer.
+//   1. arrive: thread 0 signals arrive[r] (stores 1, release), then
+//      consumes arrive[q]: waits until it is 1 (acquire) and stores 0.
+//      Rank q's block runs only after every earlier kernel on q's stream,
+//      so once q has arrived nothing earlier still reads q's receive
+//      buffer.
 //   2. copy: the block writes the payload (or zeros) into q's receive
 //      buffer on q's card, through unified addressing.
 //   3. signal: __syncthreads, a system fence, then thread 0 signals
-//      ready[q] (adds 1, release).
-//   4. wait: thread 0 consumes ready[r] (acquire): the rank's own buffer
-//      has arrived before the launch ends, so the stream's next kernels
-//      may read it.
+//      ready[q] (stores 1, release).
+//   4. wait: thread 0 consumes ready[r] (acquire, then stores 0): the
+//      rank's own buffer has arrived before the launch ends, so the
+//      stream's next kernels may read it.
 //
 // Every arrive and every ready word has one producer and one consumer a
 // call (the wrapper's routes build the blocks so), and a word is signalled
-// again only after its consumer has taken the last signal away (rank r
-// signals arrive[r] in its next call only after it consumed ready[r],
-// which its sender signals only after consuming arrive[r]; likewise for
-// ready), so a word is 0 or 1 and is never reset. Nothing travels from the
-// host: a launch's parameters are the same on every call, so one graph
-// node replays any number of times. The flags are 64-bit words in device
-// memory, one arrive and one ready word per rank, on the rank's own card.
+// again only after its consumer has cleared the last signal: the thread
+// that clears arrive[q] then signals ready[q] with release, and q signals
+// arrive[q] in its next call only after it acquired ready[q]; the thread
+// that clears ready[r] does so before its launch ends, and r's next call
+// signals arrive[r], which r's sender acquires before it signals ready[r]
+// again. So each clear happens before the next signal of its word, a word
+// is only ever 0 or 1, and a store is all a signal or a consume needs:
+// no atomic operation touches a peer card's memory, which CUDA guarantees
+// only on pairs with native peer atomics, not over every PCIe link.
+// Nothing is reset and nothing travels from the host: a launch's
+// parameters are the same on every call, so one graph node replays any
+// number of times. The flags are 64-bit words in device memory, one arrive
+// and one ready word per rank, on the rank's own card.
 // The flag words, the error word and the receive buffers of a plan (one per
 // call site, shape and direction: call sites with no data dependency on
 // each other get their own, the collective_id rule of the TPU kernel) live
@@ -76,12 +84,12 @@
 // PyTorch's caching allocator, so that an exported handle maps the window
 // itself and not the base of a pooled block; across processes each process
 // opens its peers' windows once (halo_ipc_open). Signals are
-// red.release.sys, waits ld.acquire.sys, and the consuming decrement a
-// system-scope atomic: a word may lie on a peer card. The receive buffers
-// are reused from call to call, and the arrive wait is what keeps a fast
-// sender from overwriting a buffer that its receiver still reads: the
-// receiver arrives only when every earlier kernel on its stream, the
-// readers of the last call's buffer included, has finished.
+// st.release.sys, waits ld.acquire.sys, and clears st.relaxed.sys: a word
+// may lie on a peer card. The error word lies on the launch's own card.
+// The receive buffers are reused from call to call, and the arrive wait is
+// what keeps a fast sender from overwriting a buffer that its receiver
+// still reads: the receiver arrives only when every earlier kernel on its
+// stream, the readers of the last call's buffer included, has finished.
 //
 // On one card the wrapper can take this protocol too (a plan made with
 // flags on one card): then every block of the one launch waits on another
@@ -131,9 +139,9 @@ struct HaloArgs {
   unsigned int zero_mask;
 };
 
-// Signal a semaphore: add 1, with release semantics at system scope.
+// Signal a semaphore: store 1, with release semantics at system scope.
 __device__ __forceinline__ void signal_sys(unsigned long long* p) {
-  asm volatile("red.release.sys.global.add.u64 [%0], 1;" ::"l"(p)
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(1ULL)
                : "memory");
 }
 
@@ -147,16 +155,15 @@ __device__ __forceinline__ unsigned long long load_acquire_sys(
   return v;
 }
 
-// Consume one signal of a semaphore: spin until *p >= 1, then take 1 away;
-// false if the wait ran past kSpinLimit cycles (nothing taken).
+// Consume the signal of a semaphore: spin until *p is 1, then store 0;
+// false if the wait ran past kSpinLimit cycles (nothing cleared).
 __device__ bool consume(unsigned long long* p) {
   const long long t0 = clock64();
   while (load_acquire_sys(p) < 1ULL) {
     if (clock64() - t0 > kSpinLimit) return false;
     __nanosleep(64);
   }
-  asm volatile("red.relaxed.sys.global.add.u64 [%0], %1;" ::"l"(p),
-               "l"(~0ULL)
+  asm volatile("st.relaxed.sys.global.u64 [%0], %1;" ::"l"(p), "l"(0ULL)
                : "memory");
   return true;
 }

@@ -137,7 +137,8 @@ class StaticCall:
     ``meshes``: the meshes whose collective logs the body appends to.
     ``counts``: what one replay adds to :func:`counts` (names whose count
     moves); ``ops``: what it appends to each mesh's open log.
-    ``replays``: the replays so far.
+    ``replays``: the replays so far; ``released``: :meth:`release` freed
+    the graph.
     ``cards``: the home device, then the other devices of the inputs.
     ``stream``: the capture's stream on the home card; ``streams``: the
     capture's stream of each card by index, on which the warm-up laid out
@@ -174,6 +175,7 @@ class StaticCall:
         self.streams: dict = {}
         self._pools: list = []
         self.replays = 0
+        self.released = False
         self.counts: dict = {}
         self.ops: list = [[] for _ in self.meshes]
         self.stats: dict = {}
@@ -205,6 +207,9 @@ class StaticCall:
         """The body's outputs for ``inputs``: run eagerly on the buffers,
         or the graph replayed, what it counts added and its outputs
         cloned."""
+        if self.released:
+            raise ReferenceError(f"{self.name}: the graph was freed at "
+                                 f"shutdown")
         self._load(inputs)
         if self.graph is None:
             return self.body(*self.inputs)
@@ -217,10 +222,11 @@ class StaticCall:
         return tree_map(torch.clone, self.outputs)
 
     def release(self) -> None:
-        """Free the graph, its outputs and its pools; later calls run the
-        body eagerly."""
+        """Free the graph, its outputs and its pools; a later call raises
+        ``ReferenceError``."""
         self.graph = self.outputs = None
         self._pools = []
+        self.released = True
 
     def _replay(self) -> None:
         """The graph on the home card's current stream, ordered after

@@ -20,9 +20,10 @@ contiguous ``(ranks on the card, *shape)`` tensor of the payload's type.
 
 Where the ranks' streams are not ordered with each other (several cards, or
 a pair through CUDA IPC) the kernel takes its ``.sys`` flag protocol: the
-TPU kernel's counting semaphores, each arrive and ready word signalled once
-and consumed once a call (:func:`semaphores`), so a launch's parameters
-never change and a CUDA graph replays it. The flag words, an error word and
+TPU kernel's semaphores, each arrive and ready word signalled once and
+consumed once a call (:func:`semaphores`), by stores alone (no atomic on a
+peer card's memory), so a launch's parameters never change and a CUDA graph
+replays it. The flag words, an error word and
 the receive buffers live in the call's plan (one per axis, direction,
 mask, collective_id, shape, dtype and strides): one cudaMalloc'ed window
 per card, zeroed once. The receive buffers are reused from call to call:
@@ -448,13 +449,12 @@ class HaloKernel:
     the kernel launches, ``pairs`` the pairs by route.
 
     ``flags_on_one_card``: plans on one card take the flag protocol too
-    (checks of the protocol, not the step's route). ``name``: the prefix of
-    :meth:`snapshot`'s names, unique among ``dsp/graph.py``'s
-    ``COUNTERS``."""
+    (checks of the protocol, not the step's route); its counts go under
+    the name ``halo_flags``, apart from the step's ``halo``."""
 
-    def __init__(self, flags_on_one_card: bool = False, name: str = "halo"):
+    def __init__(self, flags_on_one_card: bool = False):
         self.flags_on_one_card = flags_on_one_card
-        self.name = name
+        self.name = "halo_flags" if flags_on_one_card else "halo"
         self.launches = 0
         self.pairs = {"kernel": 0, "ipc": 0, "group": 0}
         self._lib = None

@@ -928,7 +928,7 @@ def phase_halo_flags(dev, card):
     from blah2_tpu_torch.ops.halo import HaloKernel, halo_permute_plain
 
     t0 = time.perf_counter()
-    kernel = HaloKernel(flags_on_one_card=True, name="halo_flags")
+    kernel = HaloKernel(flags_on_one_card=True)
     mesh = one_card_mesh(dev, (1, 4))
     n = mesh.size
     Halos = collections.namedtuple("Halos", [f"h{i}" for i in range(2 * n)])

@@ -1301,7 +1301,7 @@ def test_halo_flags_on_one_card_replay_in_a_graph(card, shape):
     from blah2_tpu_torch.ops.halo import HaloKernel, halo_permute_plain
     from blah2_tpu_torch.parallel.mesh import make_radar_mesh
 
-    kernel = HaloKernel(flags_on_one_card=True, name="halo_flags_test")
+    kernel = HaloKernel(flags_on_one_card=True)
     n = shape[0] * shape[1]
     mesh = make_radar_mesh(*shape, devices=[card] * n)
     gen = torch.Generator(device=card).manual_seed(3)

@@ -1,5 +1,5 @@
 """The halo kernel's flag protocol (``csrc/halo.cu``, ``ops/halo.py``):
-counting semaphores that a launch signals and consumes, so that a launch's
+semaphores that a launch signals and consumes by stores, so that a launch's
 parameters never change and a CUDA graph replays it.
 
 The protocol holds where every flag word that a call signals is consumed
@@ -169,7 +169,7 @@ def test_flagged_wrapper_takes_the_plain_twin_on_cpu_and_counts_by_name():
     from blah2_tpu.parallel.mesh import make_radar_mesh as jax_mesh
     from blah2_tpu_torch.parallel.halo import shift_from_next
 
-    kernel = HaloKernel(flags_on_one_card=True, name="halo_flags")
+    kernel = HaloKernel(flags_on_one_card=True)
     assert set(kernel.snapshot()) == {"halo_flags", "halo_flags_kernel",
                                       "halo_flags_ipc", "halo_flags_group"}
     kernel.add({"halo_flags": 3, "halo_flags_ipc": 2, "halo": 5})

@@ -511,8 +511,9 @@ def test_static_call_makes_each_buffer_on_its_inputs_device():
 def test_shutdown_frees_the_registered_graphs_before_the_groups_go(
         monkeypatch):
     """A graph that captured NCCL calls is freed when the job is left,
-    before its groups go (their communicator waits for such graphs); a
-    graph already dropped is not kept alive for it."""
+    before its groups go (their communicator waits for such graphs), and a
+    later call raises rather than run the body eagerly; a graph already
+    dropped is not kept alive for it."""
     events = []
     monkeypatch.setattr(distributed, "_job", distributed.Job(
         "nccl", "", ("",), (), None))
@@ -532,4 +533,5 @@ def test_shutdown_frees_the_registered_graphs_before_the_groups_go(
     assert events == ["hook", "barrier", "destroy"]
     assert calls[0].graph is None and calls[0].outputs is None
     assert distributed.job() is None and distributed._at_shutdown == []
-    assert torch.equal(calls[0](torch.ones(2)), torch.ones(2))
+    with pytest.raises(ReferenceError, match="freed at shutdown"):
+        calls[0](torch.ones(2))
