@@ -18,6 +18,13 @@ per-layout ``jax.jit`` programs and per-chunk-count cache
 (``blah2_tpu/dsp/pipeline.py:205-226,339-361``). ``graph=False`` keeps the
 eager path; ``call_staged`` is always eager.
 
+``stage_marks``, where the runtime sets it (``runtime/spans.py``
+``StageMarks``), marks the start of each entry's body (mark 0) and the
+boundaries of the fused CPI's four stages in ``forward`` (marks 1-5):
+spectrum | clutter filter | ambiguity | detection. On a card its marks are
+timing CUDA events that a capture turns into event-record nodes of the
+graph.
+
 The tracker stays on the host, as in the JAX package.
 """
 
@@ -113,6 +120,7 @@ class CpiPipeline(nn.Module):
         self.graph = bool(graph)
         self.graphs: dict = {}
         self.before_capture = None
+        self.stage_marks = None
         self.config = config
         self.dtype = dtype
         cap, proc = config.capture, config.process
@@ -181,10 +189,13 @@ class CpiPipeline(nn.Module):
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> CpiOutputs:
         """One CPI from complex reference ``x`` and surveillance ``y`` that
         already lie on ``self.device``."""
+        self._mark(1)
         spec_db = SpectrumAnalyser.to_db(self.spectrum(x))
         sub_db = None if self.spectrum_sub is None \
             else self._sub_spectra_db(x)
+        self._mark(2)
         z, clutter_ok = self.cross_map(x, y)
+        self._mark(4)
         if not self.detection_enabled:
             db, noise, max_power = map_metrics(z)
             det = _empty_detections(self.device)
@@ -195,9 +206,14 @@ class CpiPipeline(nn.Module):
             db, noise, max_power = map_metrics(z)
             det = self.centroid(self.cfar(z, noise))
             det = self.interpolate(det, db - noise)
+        self._mark(5)
         return CpiOutputs(db_map=db, noise_power=noise, max_power=max_power,
                           spectrum_db=spec_db, clutter_ok=clutter_ok,
                           detections=det, sub_spectra_db=sub_db)
+
+    def _mark(self, i: int) -> None:
+        if self.stage_marks is not None:
+            self.stage_marks.mark(i)
 
     def _sub_spectra_db(self, x: torch.Tensor) -> torch.Tensor:
         """(k, n_spectrum) dB sub-CPI spectra of the complex CPI: one
@@ -214,6 +230,7 @@ class CpiPipeline(nn.Module):
             y, clutter_ok = self.clutter(x, y)
         else:
             clutter_ok = torch.ones((), dtype=torch.bool, device=self.device)
+        self._mark(3)
         return self.ambiguity(x, y), clutter_ok
 
     # -- staged mode: the CPI as four stages the runtime times under the
@@ -345,6 +362,7 @@ class CpiPipeline(nn.Module):
 
     def run_planes(self, x, y) -> CpiOutputs:
         """The eager body of :meth:`__call__`."""
+        self._mark(0)
         return super().__call__(self._complex(x), self._complex(y))
 
     def call_quad(self, quads) -> CpiOutputs:
@@ -358,6 +376,7 @@ class CpiPipeline(nn.Module):
 
     def run_quad(self, quads) -> CpiOutputs:
         """The eager body of :meth:`call_quad`."""
+        self._mark(0)
         q = self._tensor(quads)
         return super().__call__(
             complex_of_parts(q[:, 0], q[:, 1], self.dtype),
@@ -370,6 +389,7 @@ class CpiPipeline(nn.Module):
 
     def run_quad12(self, packed) -> CpiOutputs:
         """The eager body of :meth:`call_quad12`."""
+        self._mark(0)
         return super().__call__(*self.decode_quad12(packed))
 
     def decode_quad12(self, packed):
@@ -393,6 +413,8 @@ class CpiPipeline(nn.Module):
 
     def run_chunks(self, x_chunks, y_chunks) -> CpiOutputs:
         """The eager body of :meth:`call_chunks`."""
+        self._mark(0)
+
         def cat(chunks):
             parts = [unpack_components(self._tensor(ch)) for ch in chunks]
             return complex_of_parts(torch.cat([p[0] for p in parts]),

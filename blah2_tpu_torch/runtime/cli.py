@@ -19,6 +19,12 @@ torchrun's environment) on each of N processes. Each initialises
 layout: NCCL where every process computes on cards of its own, else gloo),
 and ``--mesh CPIxPULSE`` then builds one mesh over every process's ranks.
 Only process 0 serves the API.
+
+``--profile-dir D`` writes the ``torch.profiler`` trace of the run to
+``D/trace.json`` with the runtime's spans of its last CPIs
+(``RadarRuntime.spans``, ``runtime/spans.py``) merged in on the trace's
+clock: complete events of ``cat`` "span" on two tracks named for the radar
+thread, so that host phases and device work share one timeline.
 """
 
 from __future__ import annotations
@@ -58,12 +64,13 @@ def main(argv=None) -> int:
                              "stage)")
     parser.add_argument("--staged-sample-every", type=int, default=16,
                         metavar="N",
-                        help="refresh the fused path's per-stage timing "
-                             "split with a staged sample every N CPIs "
-                             "(0 disables; default 16)")
+                        help="run a staged sample (each stage waited "
+                             "for and timed) every N CPIs (0 disables; "
+                             "default 16)")
     parser.add_argument("--profile-dir", default=None,
                         help="write a torch.profiler trace of the run to "
-                             "this directory (trace.json)")
+                             "this directory (trace.json), the runtime's "
+                             "spans merged in")
     parser.add_argument("--eager", action="store_true",
                         help="run each CPI from eager Python instead of "
                              "replaying its CUDA graph (on a card: the "
@@ -193,8 +200,11 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize(device)
             profiler.stop()
             os.makedirs(args.profile_dir, exist_ok=True)
-            profiler.export_chrome_trace(
-                os.path.join(args.profile_dir, "trace.json"))
+            path = os.path.join(args.profile_dir, "trace.json")
+            profiler.export_chrome_trace(path)
+            from blah2_tpu_torch.runtime.spans import merge_into_trace
+
+            merge_into_trace(path, runtime.spans)
         runtime.stop()
         if api_server is not None:
             api_server.stop()

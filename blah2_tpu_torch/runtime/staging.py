@@ -15,7 +15,9 @@ Products come back the other way: :func:`start_fetch` enqueues
 non-blocking copies of every output tensor into pinned host tensors behind
 the CPI's work and records one event; :meth:`Fetch.wait` waits on it and
 returns the outputs as NumPy arrays, so serialising them reads host memory
-only. On the CPU both are plain: the tensors are already host memory.
+only; the event, a timing one, also ends the runtime's timing of the CPI
+on the card. On the CPU both are plain: the tensors are already host
+memory.
 """
 
 from __future__ import annotations
@@ -88,19 +90,19 @@ class Fetch:
 
     def __init__(self, host, event: Optional[torch.cuda.Event]):
         self._host = host
-        self._event = event
+        self.event = event
 
     def wait(self):
         """The products as NumPy arrays, once their copies have landed."""
-        if self._event is not None:
-            self._event.synchronize()
+        if self.event is not None:
+            self.event.synchronize()
         return tree_map(lambda t: t.numpy(), self._host)
 
 
 def start_fetch(out, device: torch.device) -> Fetch:
     """Enqueue non-blocking copies of every tensor of ``out`` into pinned
     host tensors on the current stream, behind the work that makes them,
-    and record one event after the last."""
+    and record one timing event after the last."""
     if device.type != "cuda":
         return Fetch(tree_map(lambda t: t.detach(), out), None)
 
@@ -110,7 +112,7 @@ def start_fetch(out, device: torch.device) -> Fetch:
         return h
 
     host = tree_map(copy, out)
-    event = torch.cuda.Event()
+    event = torch.cuda.Event(enable_timing=True)
     event.record(torch.cuda.current_stream(device))
     return Fetch(host, event)
 

@@ -621,6 +621,99 @@ def test_deferred_fetch_products_arrive_in_order_on_card(card):
 
 
 @pytest.mark.cuda
+def test_stage_marks_time_the_replayed_cpi_on_card(card):
+    """Six packed CPIs under deferred fetch on the card, five of them
+    replays of the CUDA graph: the stage marks (event-record nodes inside
+    the graph) time each of the four stages, and their sum lies inside the
+    CPI's pair of events (``device``) with 5 % of room; ``wire_transfer``
+    is the rest."""
+    import os
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.runtime.radar import RadarRuntime
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "config", "config-synthetic.yml"))
+    cfg.capture.device_type = "RspDuo"  # int16 wire: packed-12 chunks
+    rt = RadarRuntime(cfg, staged_sample_every=0, device=card)
+    docs = []
+    orig = rt._emit
+
+    def keep(product, payload, parsed=None):
+        if product == "timing":
+            docs.append(parsed)
+        return orig(product, payload, parsed=parsed)
+
+    rt._emit = keep
+    for k, (x, y) in enumerate(_runtime_windows(rt.n_samples, 6)):
+        rt.buffer1.push(x)
+        rt.buffer2.push(y)
+        got = rt._extract_cpi_chunks(timeout=1.0)
+        assert rt.process_one_cpi_chunks(*got, timestamp_ms=10 + k) is None
+    rt._flush_pending()
+    (call,) = rt.pipeline.graphs.values()
+    assert call.replays == 5 and len(docs) == 6
+    for d in docs[1:]:
+        stages = [d[k] for k in rt.DEVICE_STAGES]
+        assert all(s > 0.0 for s in stages), stages
+        assert 0.0 < sum(stages) <= 1.05 * d["device"], (stages, d)
+        assert abs(d["wire_transfer"]
+                   - max(0.0, d["device"] - sum(stages))) < 1e-3
+
+
+@pytest.mark.cuda
+def test_a_cpi_still_running_never_holds_the_next_dispatch(card):
+    """Five packed CPIs under deferred fetch, the third held on the card
+    behind a spin of about 200 ms: the fourth is dispatched while the
+    third still runs (its dispatch span ends before the third's wait
+    begins), the third's wait falls in its own ``fetch_wait``, its stage
+    marks are lost and counted, and its ``device`` runs from its begin
+    event, behind the spin, to its fetch's: its own work, under the spin's
+    length, split by the second CPI's stage shares. The other CPIs' marks
+    are read (the fifth is dispatched once the fourth has finished)."""
+    import os
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.runtime.radar import RadarRuntime
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "config", "config-synthetic.yml"))
+    cfg.capture.device_type = "RspDuo"
+    rt = RadarRuntime(cfg, staged_sample_every=0, device=card)
+    docs = []
+    orig = rt._emit
+
+    def keep(product, payload, parsed=None):
+        if product == "timing":
+            docs.append(parsed)
+        return orig(product, payload, parsed=parsed)
+
+    rt._emit = keep
+    for k, (x, y) in enumerate(_runtime_windows(rt.n_samples, 5)):
+        rt.buffer1.push(x)
+        rt.buffer2.push(y)
+        rt.n_cpis_done = k  # the CPI's index in its spans
+        got = rt._extract_cpi_chunks(timeout=1.0)
+        if k == 2:
+            torch.cuda._sleep(400_000_000)  # ~200 ms at 1.98 GHz
+        if k == 4:
+            torch.cuda.synchronize(card)  # the fourth CPI has finished
+        assert rt.process_one_cpi_chunks(*got, timestamp_ms=10 + k) is None
+    rt._flush_pending()
+    assert len(docs) == 5 and rt.marks_lost == 1
+    logged = {(name, cpi): (t0, t1) for name, cpi, t0, t1 in rt.spans.spans()}
+    assert logged["dispatch", 3][1] <= logged["fetch_wait", 2][0]
+    assert docs[2]["fetch_wait"] > 50.0
+    assert 0.0 < docs[2]["device"] < 50.0
+    for k in rt.DEVICE_STAGES:  # split by the second CPI's shares
+        assert docs[2][k] / docs[2]["device"] == pytest.approx(
+            docs[1][k] / docs[1]["device"])
+    for d in (docs[1], docs[3], docs[4]):
+        assert d["fetch_wait"] < 50.0
+        assert 0.0 < sum(d[k] for k in rt.DEVICE_STAGES) <= 1.05 * d["device"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("depth", [1, 3])
 def test_pinned_stager_never_refills_a_buffer_in_flight(card, depth):
     """200 distinct chunks through a ring of 1 or 3 pinned buffers, with

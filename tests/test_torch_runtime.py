@@ -31,6 +31,7 @@ from blah2_tpu_torch.config import config_from_dict, load_config
 from blah2_tpu_torch.ops.pack12 import unpack12_np
 from blah2_tpu_torch.runtime import cli
 from blah2_tpu_torch.runtime.radar import RadarRuntime
+from blah2_tpu_torch.runtime.spans import KEYS as SPAN_KEYS
 from blah2_tpu_torch.runtime.staging import fetch, start_fetch, tree_map
 
 torch.set_num_threads(1)
@@ -158,7 +159,8 @@ def test_process_one_cpi_matches_jax():
 def test_process_one_cpi_chunks_matches_jax(defer):
     """The chunked entry of both runtimes on the same windows, popped from
     their rings in 4 chunks; under deferred fetch each CPI's products come
-    out one CPI behind, and the timing docs carry the same keys."""
+    out one CPI behind, and the timing docs carry JAX's keys and the
+    port's span keys, exactly."""
     port = _runtime(staged_sample_every=0, ingest_chunks=4,
                     defer_fetch=defer)
     ref = JaxRuntime(jax_load_config(CONFIG), staged_sample_every=0,
@@ -190,7 +192,7 @@ def test_process_one_cpi_chunks_matches_jax(defer):
     if defer:
         assert len(docs["port"]) == len(docs["jax"]) == 3
         for a, b in zip(docs["port"], docs["jax"]):
-            assert a.keys() == b.keys() and ALL_KEYS <= set(a)
+            assert set(a) == set(b) | set(SPAN_KEYS) and ALL_KEYS <= set(a)
 
 
 # -- the port's own loop -----------------------------------------------------

@@ -25,6 +25,7 @@ from blah2_tpu_torch.config import config_from_dict
 from blah2_tpu_torch.parallel.mesh import make_radar_mesh
 from blah2_tpu_torch.parallel.sharded import ShardedCpiPipeline
 from blah2_tpu_torch.runtime.radar import RadarRuntime
+from blah2_tpu_torch.runtime.spans import KEYS as SPAN_KEYS
 from tests.test_torch_runtime import ALL_KEYS, _run_bounded, _spy
 
 torch.set_num_threads(1)
@@ -75,7 +76,7 @@ def test_mesh_runtime_emits_per_cpi_products_as_jax():
     """One batch of two windows through both runtimes' process_cpi_batch:
     deferred (None), then flushed; per CPI the same products as JAX's,
     the map within 0.05 dB (plus the JSON's 0.01 dB rounding), and timing
-    docs with the same keys."""
+    docs with JAX's keys and the port's span keys, exactly."""
     port = _runtime()
     ref = JaxRuntime(jax_config(CFG), mesh=jax_mesh(2, 4))
     assert port.cpi_batch == ref.cpi_batch == 2
@@ -105,7 +106,7 @@ def test_mesh_runtime_emits_per_cpi_products_as_jax():
     docs, jdocs = got["port"][1], got["jax"][1]
     assert len(docs) == len(jdocs) == 2
     for a, b in zip(docs, jdocs):
-        assert a.keys() == b.keys() and ALL_KEYS <= set(a)
+        assert set(a) == set(b) | set(SPAN_KEYS) and ALL_KEYS <= set(a)
 
 
 def test_mesh_runtime_products_equal_the_pipeline():
