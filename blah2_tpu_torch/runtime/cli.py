@@ -205,6 +205,12 @@ def main(argv=None) -> int:
             from blah2_tpu_torch.runtime.spans import merge_into_trace
 
             merge_into_trace(path, runtime.spans)
+        if runtime.sharded is None and runtime.defer_fetch:
+            print(f"[runtime] deferred CPIs: {runtime.flushed_in_fill} "
+                  f"emitted in the next fill ({runtime.flushed_waited} "
+                  f"after a wait for the card), {runtime.flushed_behind} "
+                  f"behind the next dispatch; stage marks lost: "
+                  f"{runtime.marks_lost}", flush=True)
         runtime.stop()
         if api_server is not None:
             api_server.stop()

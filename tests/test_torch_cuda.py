@@ -714,6 +714,87 @@ def test_a_cpi_still_running_never_holds_the_next_dispatch(card):
 
 
 @pytest.mark.cuda
+def test_paced_cpis_emit_in_the_next_fill_on_card(card):
+    """Eight packed CPIs under deferred fetch on the card, each pushed
+    50 ms after the runtime waits on dry rings (after the CPI before was
+    dispatched), a capture slower than the card: every CPI is emitted in
+    the next CPI's fill, its ``deferral`` under 5 ms (the first, with no
+    ``device`` read before it, waited for at once in its ``fetch_wait``;
+    the others once they have run as long as the CPI before), no stage
+    marks are lost, and the products are the bits of a synchronous run of
+    the same windows and timestamps."""
+    import os
+    import threading
+    import time
+
+    from blah2_tpu_torch.config import load_config
+    from blah2_tpu_torch.runtime.radar import RadarRuntime
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "config", "config-synthetic.yml"))
+    cfg.capture.device_type = "RspDuo"  # int16 wire: packed-12 chunks
+    rt = RadarRuntime(cfg, staged_sample_every=0, device=card)
+    windows = _runtime_windows(rt.n_samples, 8)
+    docs, cpis, cur = [], [], {}
+    orig = rt._emit
+
+    def keep(product, payload, parsed=None):
+        nonlocal cur
+        if product == "timing":
+            docs.append(parsed)
+        elif product == "timestamp":
+            cpis.append((int(payload), cur))
+            cur = {}
+        else:
+            cur[product] = payload
+        return orig(product, payload, parsed=parsed)
+
+    rt._emit = keep
+    asked = [-1]  # CPIs done when the runtime last waited on a short ring
+    wait_for = rt.buffer1.wait_for
+
+    def paced_wait(n, timeout=None):
+        if len(rt.buffer1) < n:
+            asked[0] = rt.n_cpis_done
+        return wait_for(n, timeout=timeout)
+
+    rt.buffer1.wait_for = paced_wait
+
+    def push():
+        end = time.monotonic() + 60.0
+        for k, (x, y) in enumerate(windows):
+            while asked[0] < k:
+                if time.monotonic() > end:
+                    return
+                time.sleep(0.001)
+            time.sleep(0.05)
+            rt.buffer1.push(x)
+            rt.buffer2.push(y)
+
+    pusher = threading.Thread(target=push, daemon=True)
+    pusher.start()
+    t = threading.Thread(target=rt.run, kwargs={"n_cpis": 8, "quiet": True},
+                         daemon=True)
+    t.start()
+    t.join(120.0)
+    rt.stop()
+    pusher.join(10.0)
+    assert not t.is_alive(), "the run did not end within 120 s"
+    assert len(docs) == len(cpis) == 8
+    assert (rt.flushed_in_fill, rt.flushed_behind, rt.marks_lost) == \
+        (7, 0, 0)
+    assert all(d["deferral"] < 5.0 for d in docs), \
+        [d["deferral"] for d in docs]
+    sync = RadarRuntime(cfg, staged_sample_every=0, defer_fetch=False,
+                        device=card)
+    for (x, y), (stamp, got) in zip(windows, cpis):
+        sync.buffer1.push(x)
+        sync.buffer2.push(y)
+        assert got == sync.process_one_cpi_chunks(
+            *sync._extract_cpi_chunks(timeout=1.0), timestamp_ms=stamp)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("depth", [1, 3])
 def test_pinned_stager_never_refills_a_buffer_in_flight(card, depth):
     """200 distinct chunks through a ring of 1 or 3 pinned buffers, with

@@ -214,8 +214,9 @@ def test_threaded_synthetic_run_emits_every_cpi_in_order():
     assert len(maps) == 5
     stamps = [m["timestamp"] for m, _ in maps]
     assert stamps == sorted(stamps)
-    # CPI j emits while CPI j+1 runs (fused) or during its own (staged:
-    # CPIs 0, 2, 4); the last fused CPI would drain after the loop.
+    # CPI j emits during CPI j+1's fill or behind its dispatch (fused) or
+    # during its own (staged: CPIs 0, 2, 4); the last fused CPI would drain
+    # after the loop.
     assert [done - j for j, (_, done) in enumerate(maps)] == [0, 1, 0, 1, 0]
     timings = [json.loads(v) for p, v, _ in emissions if p == "timing"]
     assert len(timings) == 5 and timings[-1]["nCpi"] == 5
@@ -234,8 +235,9 @@ def test_threaded_synthetic_run_emits_every_cpi_in_order():
 
 def test_capture_stall_flushes_the_pending_cpi():
     """Two CPIs in the rings and no capture: the second CPI's products,
-    deferred behind a third that never comes, are emitted when extraction
-    times out; the third arrives later and drains at the end."""
+    deferred behind a third that does not come, are emitted as the third
+    CPI's fill finds the rings dry; the third arrives later and drains at
+    the end."""
     rt = _runtime(staged_sample_every=0)
     emissions = _spy(rt)
     (x0, y0), (x1, y1), (x2, y2) = _windows(rt.n_samples, 3)
@@ -260,6 +262,195 @@ def test_capture_stall_flushes_the_pending_cpi():
         t.join(10.0)
     assert sum(p == "map" for p, _, _ in emissions) == 3
     assert sum(p == "timestamp" for p, _, _ in emissions) == 3
+
+
+class _CardFetchEvent:
+    """A CPI's fetch event as on a card, played on the host: the card runs
+    the CPI for ``run_s`` from the fetch's start, so ``query`` is false
+    until then, and ``synchronize`` (logged as "wait" in ``log``) sleeps
+    out the rest."""
+
+    def __init__(self, log, run_s):
+        self.log, self.end = log, time.perf_counter() + run_s
+
+    def query(self):
+        return time.perf_counter() >= self.end
+
+    def synchronize(self):
+        self.log.append("wait")
+        time.sleep(max(0.0, self.end - time.perf_counter()))
+
+
+def _card_fetches(monkeypatch, log, run_s):
+    """Route the runtime's fetches through :class:`_CardFetchEvent`s of
+    ``run_s``; returns the events, in CPI order."""
+    from blah2_tpu_torch.runtime import radar, staging
+
+    events = []
+
+    def start_fetch(out, device):
+        events.append(_CardFetchEvent(log, run_s))
+        return staging.Fetch(tree_map(lambda t: t.detach(), out), events[-1])
+
+    monkeypatch.setattr(radar, "start_fetch", start_fetch)
+    return events
+
+
+def _log_calls(monkeypatch, rt, log, before=lambda: None):
+    """Log each of ``rt``'s pipeline calls as "call", after ``before``."""
+    call = rt.pipeline.call_chunks
+
+    def logged_call(*a):
+        before()
+        log.append("call")
+        return call(*a)
+
+    monkeypatch.setattr(rt.pipeline, "call_chunks", logged_call)
+
+
+def _paced_capture(rt, windows, delay=0.0):
+    """A capture thread that pushes each window ``delay`` seconds after
+    the runtime, having dispatched the CPI before, waits on a ring short of
+    a chunk: so each fill's first wait finds the rings dry."""
+    asked = [-1]  # CPIs done when the runtime last waited on a short ring
+    wait_for = rt.buffer1.wait_for
+
+    def paced_wait(n, timeout=None):
+        if len(rt.buffer1) < n:
+            asked[0] = rt.n_cpis_done
+        return wait_for(n, timeout=timeout)
+
+    rt.buffer1.wait_for = paced_wait
+
+    def push():
+        end = time.monotonic() + 60.0
+        for k, (x, y) in enumerate(windows):
+            while asked[0] < k:
+                if time.monotonic() > end:
+                    return
+                time.sleep(0.001)
+            time.sleep(delay)
+            rt.buffer1.push(x)
+            rt.buffer2.push(y)
+
+    t = threading.Thread(target=push, daemon=True)
+    t.start()
+    return t
+
+
+def _per_cpi(emissions) -> list:
+    """The products of each CPI, in emission order: a dict of product to
+    payload closed by the CPI's ``timestamp`` emission."""
+    out, cur = [], {}
+    for product, payload, _ in emissions:
+        if product == "timestamp":
+            out.append(cur)
+            cur = {}
+        elif product != "timing":
+            cur[product] = payload
+    return out
+
+
+#: The card's time a CPI and the capture's delay, in seconds: the CPU's
+#: fetch (done at once); a card done well before the capture sends the
+#: next CPI (its ``device``, the CPU's wall of the eager call and the
+#: fetch, a few hundred ms at most); a card that runs on while the capture
+#: sends it at once.
+PACED = {"done": (None, 0.0), "short": (0.02, 1.0), "long": (0.6, 0.0)}
+
+
+@pytest.mark.parametrize("card", list(PACED))
+def test_paced_cpis_emit_in_the_next_fill(monkeypatch, card):
+    """Capture paced a CPI at a time. Where the card is done ("done") or
+    its work is short against the capture's pace ("short"), each fused
+    CPI's products go out in the next CPI's fill, before its call: at
+    once where the card has them, or, with the rings dry, once the CPI has
+    run as long as the CPI before on the card (the first, with none read
+    before it, is waited for at once). Where the card's work is long and
+    the next CPI's samples arrive meanwhile ("long"), the host ingests
+    them and does not wait on the card (but for the first CPI): each CPI
+    goes out behind the next dispatch. The products come in order with
+    the bits of a synchronous run, and a flush lies outside the in-fill
+    CPI's ring and ingest spans."""
+    n = 3
+    run_s, delay = PACED[card]
+    rt = _runtime(staged_sample_every=0)
+    log = []
+    if run_s is not None:
+        _card_fetches(monkeypatch, log, run_s)
+    _log_calls(monkeypatch, rt, log)
+    emissions = _spy(rt)
+    orig = rt._emit
+
+    def logged_emit(product, payload, **kw):
+        if product == "timestamp":
+            log.append("timestamp")
+        return orig(product, payload, **kw)
+
+    rt._emit = logged_emit
+    windows = _windows(rt.n_samples, n)
+    pusher = _paced_capture(rt, windows, delay)
+    _run_bounded(rt, n)
+    pusher.join(10.0)
+    docs = [json.loads(v) for p, v, _ in emissions if p == "timing"]
+    if card == "long":
+        assert log == ["call", "wait", "timestamp", "call", "call", "wait",
+                       "timestamp", "wait", "timestamp"]
+        assert (rt.flushed_in_fill, rt.flushed_waited,
+                rt.flushed_behind) == (1, 1, 1)
+    else:
+        assert [e for e in log if e != "wait"] == ["call", "timestamp"] * n
+        assert (rt.flushed_in_fill, rt.flushed_behind) == (n - 1, 0)
+        if card == "done":
+            assert rt.flushed_waited == 0
+        else:
+            # Emitted as the card finished, not when the capture went on.
+            assert 1 <= rt.flushed_waited <= n - 1
+            assert all(d["deferral"] < 1e3 * delay for d in docs[:-1]), \
+                [d["deferral"] for d in docs]
+
+    stamps = [int(v) for p, v, _ in emissions if p == "timestamp"]
+    assert stamps == sorted(stamps) and len(stamps) == n
+    sync = _runtime(staged_sample_every=0, defer_fetch=False)
+    for (x, y), stamp, got in zip(windows, stamps, _per_cpi(emissions)):
+        sync.buffer1.push(x)
+        sync.buffer2.push(y)
+        assert got == sync.process_one_cpi_chunks(
+            *sync._extract_cpi_chunks(timeout=1.0), timestamp_ms=stamp)
+
+    logged = rt.spans.spans()
+    fill = ("ring_wait", "ring_pop", "ingest_cast", "ingest_pack",
+            "ingest_copy")
+    for k in range(n - 1):
+        flush_start = max(t1 for name, cpi, _, t1 in logged
+                          if (name, cpi) == ("deferral", k))
+        flush_end = max(t1 for _, cpi, _, t1 in logged if cpi == k)
+        for name, cpi, t0, t1 in logged:
+            if cpi == k + 1 and name in fill:
+                assert t1 <= flush_start or t0 >= flush_end, (name, k)
+
+
+def test_full_rings_keep_the_flush_behind_the_next_dispatch(monkeypatch):
+    """The rings full and the card still running each CPI until the next
+    is dispatched: no CPI is waited for during a fill; each goes out
+    behind the next dispatch, as the one-CPI deferral always did, counted
+    in ``flushed_behind``."""
+    rt = _runtime(staged_sample_every=0)
+    log = []
+    events = _card_fetches(monkeypatch, log, 1.0)
+
+    def dispatch():
+        for ev in events:  # the card has finished every CPI before
+            ev.end = 0.0
+
+    _log_calls(monkeypatch, rt, log, before=dispatch)
+    for x, y in _windows(rt.n_samples, 3):
+        rt.buffer1.push(x)
+        rt.buffer2.push(y)
+    _run_bounded(rt, 3)
+    assert log == ["call", "call", "wait", "call", "wait", "wait"]
+    assert (rt.flushed_in_fill, rt.flushed_waited,
+            rt.flushed_behind) == (0, 0, 2)
 
 
 def test_deferred_products_equal_synchronous():

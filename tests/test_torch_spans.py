@@ -169,18 +169,21 @@ def test_every_document_carries_every_span_key(path):
                                   "staged_timing", "unchunked", "mesh"])
 def test_deferral_only_under_deferred_fetch(path):
     """``deferral`` is the wait from a CPI's dispatch to its flush: > 0
-    where products are emitted a CPI later (the mesh's batches too), 0
-    where they are emitted at once; the flush after a stall waits out the
-    stall."""
-    _, emissions = _run_path(path)
+    where products are emitted after the dispatch returns (the mesh's
+    batches too), 0 where they are emitted at once. Before a stall, the
+    rings run dry in the next CPI's fill, and the deferred CPI, done on
+    the card, is emitted there: it does not wait the stall out."""
+    rt, emissions = _run_path(path)
     docs = [json.loads(v) for p, v, _ in emissions if p == "timing"]
     if path in ("deferred", "stall_flush", "mesh"):
         assert all(d["deferral"] > 0.0 for d in docs)
     else:
         assert all(d["deferral"] == 0.0 for d in docs)
     if path == "stall_flush":
-        # The second CPI's products waited out the 1 s extraction timeout.
-        assert docs[1]["deferral"] > 900.0
+        # The second CPI's products are out before the 1 s extraction
+        # timeout ends the third CPI's wait.
+        assert docs[1]["deferral"] < 900.0
+        assert (rt.flushed_in_fill, rt.flushed_behind) == (2, 0)
 
 
 @pytest.mark.parametrize("wire", ["packed", "float32"])
@@ -235,19 +238,26 @@ class _CardEvent:
         return (end.t - self.t) / 1e6
 
 
-#: The order of the calls of four deferred CPIs and the waits for their
-#: products, whichever CPIs are still running at the next dispatch.
-ORDER = ["call", "call", "wait", "call", "wait", "call", "wait", "wait"]
+def _order(busy) -> list:
+    """The calls of four deferred CPIs and the waits for their products
+    (the rings full): a CPI done on the card is waited for, at no cost, in
+    the next CPI's fill, before that CPI's call; one still running (in
+    ``busy``) only behind that call."""
+    log = ["call"]
+    for k in range(3):
+        log += ["call", "wait"] if k in busy else ["wait", "call"]
+    return log + ["wait"]
 
 
 @pytest.mark.parametrize("busy", [(), (0, 1, 2, 3), (1,), (2,)], ids=str)
 def test_stage_marks_never_hold_the_next_dispatch(monkeypatch, busy):
     """The runtime's use of the card's events, played on the host: the
     fetch event of each CPI in ``busy`` completes only when waited for, as
-    where the card still runs a CPI when the next is dispatched. Each CPI
-    is called before any wait for the one before (that wait falls in the
-    deferred CPI's own ``fetch_wait``); a busy CPI's marks are lost and
-    counted, its ``device`` runs from its ``begin`` event to its fetch's,
+    where the card still runs a CPI when the next is dispatched. The next
+    CPI is called before any wait for a busy one (that wait falls in the
+    busy CPI's own ``fetch_wait``), while a CPI done on the card is
+    emitted in the next CPI's fill, before that call; a busy CPI's marks
+    are lost and counted, its ``device`` runs from its ``begin`` event to its fetch's,
     split by the stages' shares in the last CPI whose marks were read but
     the first, which captures its graph (none: all of it
     ``wire_transfer``). The last CPI, flushed with no CPI after it, is
@@ -286,10 +296,11 @@ def test_stage_marks_never_hold_the_next_dispatch(monkeypatch, busy):
         assert rt.process_one_cpi_chunks(*chunks, timestamp_ms=100 + k) \
             is None
     rt._flush_pending()
-    assert log == ORDER
+    assert log == _order(busy)
     assert len(docs) == 4
     lost = [k for k in busy if k < 3]
-    assert rt.marks_lost == len(lost)
+    assert rt.marks_lost == rt.flushed_behind == len(lost)
+    assert (rt.flushed_in_fill, rt.flushed_waited) == (3 - len(lost), 0)
     for k, d in enumerate(docs):
         assert d["device"] > 0.0
         stages = [d[name] for name in rt.DEVICE_STAGES]
